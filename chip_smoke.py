@@ -19,6 +19,18 @@ one JSON line per phase as it goes:
    16 x 20 z-samples x 8 FSM states x beam 5, sentiment_vae 1, bf16) through
    ``DecodeHarness.decode_cbs`` once per selection, with each kernel's launch
    count from that run;
+5. ``kernel`` rows for the detector's kernels at the full-width shapes of
+   BASELINE.json config 5: RoIAlign on a (16, 38, 58, 1024) C4 map with 4,800
+   RoIs in f32 and bf16, and NMS at the RPN's 16 x 6,000 boxes and the
+   per-class 1,280 x 300, each against its plain version;
+6. ``detect``: the full-width Faster R-CNN ResNet-101 (81 classes, 98
+   attributes, 12 anchors, 16 canvases of 608 x 928) through
+   ``extract_device_features``, with RoIAlign's and NMS's launch counts;
+7. ``detect_agree``: the same forward stage by stage, each kernel's inputs
+   from the path copied to the CPU and run through the plain versions there,
+   and each stage's device time on the card;
+8. ``e2e``: config 5 end to end, the detector's bf16 features fed to the
+   full-width CBS decode (fused selection);
 
 then the ``{"kernels": [...]}`` summary, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -38,7 +50,25 @@ import torch
 from style_seqcvae_tpu_torch.decoding.cbs_fast import fsm_to_tables
 from style_seqcvae_tpu_torch.decoding.harness import DecodeHarness, pad_tables_batch
 from style_seqcvae_tpu_torch.models.captioner import CaptionerConfig, init_captioner
-from style_seqcvae_tpu_torch.ops.kernels import _build, topk_lse, vocab_topk_lse
+from style_seqcvae_tpu_torch.models.detector import defaults as det
+from style_seqcvae_tpu_torch.models.detector import resnet
+from style_seqcvae_tpu_torch.models.detector.extract import (
+    decode_boxes,
+    extract_device_features,
+    select_detections_device,
+)
+from style_seqcvae_tpu_torch.models.detector.faster_rcnn import (
+    DetectorConfig,
+    detector_forward_test,
+    init_detector,
+)
+from style_seqcvae_tpu_torch.models.detector.rpn import (
+    anchors_for,
+    proposal_candidates,
+    proposal_nms,
+    rpn_heads,
+)
+from style_seqcvae_tpu_torch.ops.kernels import _build, nms, roi_align, topk_lse, vocab_topk_lse
 from style_seqcvae_tpu_torch.weights import to_device
 
 # flagship decode (bench.py:54-55, :424): reference run dims and grid
@@ -61,12 +91,49 @@ TOL = {"vocab_topk_lse": {"vals": 1e-3, "lse": 1e-3, "idx_agree": 0.999},
 # captions for nearly every (z, image); a near-tie may flip one
 AGREE_MIN = 0.9
 
+# config 5's detector (bench.py:602-640): ResNet-101 C4, 81 classes, 98
+# attributes, anchor scales (4, 8, 16, 32) x ratios (0.5, 1, 2), RoIAlign,
+# 16 canvases of 608 x 928 holding 600 x 900 images at scale 1.5
+DET_BATCH, CANVAS, IM_INFO = 16, (608, 928), (600.0, 900.0, 1.5)
+DET_CLASSES, DET_ATTS, DET_DEPTH = 81, 98, 101
+TEST = det.InferenceConfig()
+C4 = (DET_BATCH, 38, 58, 1024)
+ROIS = DET_BATCH * TEST.rpn_post_nms_top_n
+# kernel D's two call sites in a forward, each one launch: (groups, boxes,
+# threshold, max_out, presorted)
+NMS_CALLS = {"nms_rpn": (DET_BATCH, TEST.rpn_pre_nms_top_n, TEST.rpn_nms_thresh,
+                         TEST.rpn_post_nms_top_n, True),
+             "nms_per_class": (DET_BATCH * (DET_CLASSES - 1), TEST.rpn_post_nms_top_n,
+                               TEST.nms_thresh, 0, False)}
+# f32 operations per IoU of a pair: 2 x (min, max, sub, add), 2 clamps, the
+# product, add, sub, divide and the comparison
+NMS_OPS_PER_PAIR = 15
+# f32 operations per RoIAlign output element: S^2 = 4 samples of 4 corner
+# products and sums, and the mean
+ROI_OPS_PER_OUT = 33
+# Kernel C sums each bin's 16 weighted corners in another order than its
+# plain version (same f32 weights and corner indices): a few 1e-7 on O(1)
+# features, so 1e-5 absolute in f32; in bf16 both round their f32 means
+# once, so neighbours one bf16 ulp (2^-7 relative) apart. Kernel D's
+# decisions are exact: keep_idx and keep_mask must be identical.
+ROI_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-6, 2.0 ** -7)}
+# detect_agree: pooled features of the path, whose scale is set by the
+# random ResNet (measured up to ~10): 1e-5 relative to the largest value
+DETECT_AGREE_REL = 1e-5
+
 SOURCES = {
     "vocab_topk_lse": ("style_seqcvae_tpu_torch/csrc/vocab_topk_lse.cu",
                        "style_seqcvae_tpu/ops/pallas/vocab_topk_lse.py:113"),
     "topk_lse": ("style_seqcvae_tpu_torch/csrc/topk_lse.cu",
                  "style_seqcvae_tpu/ops/pallas/topk_lse.py:76"),
+    "roi_align": ("style_seqcvae_tpu_torch/csrc/roi_align.cu",
+                  "style_seqcvae_tpu/ops/pallas/roi_align.py:92"),
+    **{site: ("style_seqcvae_tpu_torch/csrc/nms.cu", "style_seqcvae_tpu/ops/pallas/nms.py:58")
+       for site in NMS_CALLS},
 }
+
+KERNELS = {"vocab_topk_lse": vocab_topk_lse, "topk_lse": topk_lse, "roi_align": roi_align,
+           "nms": nms}
 
 
 def emit(obj) -> None:
@@ -90,6 +157,15 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float, peak: float) -> dict:
+    """The least time the card could take: bytes over HBM's rate or
+    operations over the type's peak, whichever is longer."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def synthetic_fsm(rng: np.random.RandomState, vocab: int) -> np.ndarray:
@@ -155,16 +231,13 @@ def phase_kernels(k: int, dev: torch.device) -> dict:
             agree = (got[1] == want[1]).float().mean().item()
             kernel_ms = time_ms(c["kernel"], c["kernel_reps"])
             plain_ms = time_ms(c["plain"], c["plain_reps"])
-            t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
-            t_ops = c["ops"] / c["peak"] * 1e3
             row = {"phase": "kernel", "name": name, "dtype": str(dtype).split(".")[-1],
                    "rows": R, "vocab": V, "width": E if name == "vocab_topk_lse" else None,
                    "k": k, "max_abs_err_vals": vals_err, "max_abs_err_lse": lse_err,
                    "idx_agree": agree, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                    # no single PyTorch call computes top-k with logsumexp
                    "library_ms": None,
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   **bound(c["bytes"], c["ops"], c["peak"]),
                    "tolerance": TOL[name]}
             emit(row)
             tol = TOL[name]
@@ -259,7 +332,296 @@ def phase_decode(dev: torch.device):
         best_by_sel[selection] = best
     emit({"phase": "decode_compare", "prehead_vs_fused_identical":
           (best_by_sel["prehead"] == best_by_sel["fused"]).all(dim=-1).float().mean().item()})
-    return launches
+    return launches, (harness, sentiment, tables)
+
+
+def seeded_rois(gen: torch.Generator, dev: torch.device) -> torch.Tensor:
+    """4,800 RoIs in image coordinates, image-major as the proposal layer
+    emits them: random boxes over and past the 600 x 900 image, tiny boxes
+    and all-zero padding rows."""
+    per = TEST.rpn_post_nms_top_n
+    b = torch.arange(DET_BATCH, device=dev).repeat_interleave(per).float()[:, None]
+    xy = torch.rand(ROIS, 2, generator=gen, device=dev) * torch.tensor(
+        [1000.0, 700.0], device=dev) - 50.0
+    wh = torch.rand(ROIS, 2, generator=gen, device=dev) * 400.0
+    rois = torch.cat([b, xy, xy + wh], dim=1)
+    rois[1::10, 3:] = rois[1::10, 1:3] + 3.0                 # tiny
+    rois[per - 20::per, 1:] = 0.0                            # padding rows
+    return rois.contiguous()
+
+
+def seeded_nms_inputs(gen: torch.Generator, dev: torch.device, G: int, N: int,
+                      presorted: bool):
+    """Proposal-like boxes over a 600 x 900 image (16 to 400 px) with random
+    scores, a share of them 0 like the per-class call's non-candidates."""
+    ctr = torch.rand(G, N, 2, generator=gen, device=dev) * torch.tensor([900.0, 600.0],
+                                                                         device=dev)
+    wh = torch.rand(G, N, 2, generator=gen, device=dev) * 384.0 + 16.0
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
+    scores = torch.rand(G, N, generator=gen, device=dev)
+    if presorted:
+        scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+        boxes = torch.gather(boxes, 1, order[..., None].expand(G, N, 4))
+    else:
+        scores = torch.where(scores > 0.5, scores, 0.0)
+    return boxes.contiguous(), scores
+
+
+def phase_detector_kernels(dev: torch.device) -> dict:
+    """Kernels C and D against their plain versions at config 5's shapes;
+    returns the summary rows: C in f32, the detector's dtype, and one row for
+    each of D's two call sites."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = {}
+    rois = seeded_rois(gen, dev)
+    P, S = det.POOLING_SIZE, 2
+    kw = dict(spatial_scale=1.0 / det.FEAT_STRIDE, pooled_height=P, pooled_width=P,
+              sampling_ratio=S)
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.tensor([], dtype=dtype).element_size()
+        feats = torch.randn(C4, generator=gen, device=dev).to(dtype)
+        got = roi_align.roi_align(feats, rois, **kw)
+        want = roi_align.roi_align_plain(feats, rois, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        atol, rtol = ROI_TOL[dtype]
+        within = bool((err <= atol + rtol * want.float().abs()).all())
+        n_out = ROIS * P * P * C4[-1]
+        row = {"phase": "kernel", "name": "roi_align", "dtype": str(dtype).split(".")[-1],
+               "features": list(C4), "rois": ROIS, "max_abs_err": err.max().item(),
+               "tolerance": {"atol": atol, "rtol": rtol}, "within_tolerance": within,
+               "kernel_ms": time_ms(lambda: roi_align.roi_align(feats, rois, **kw), 10),
+               "plain_ms": time_ms(lambda: roi_align.roi_align_plain(feats, rois, **kw), 2),
+               # no torchvision on the card's machine: no library RoIAlign
+               "library_ms": None,
+               **bound(feats.numel() * size + rois.numel() * 4 + n_out * size,
+                       ROI_OPS_PER_OUT * n_out, PEAK_OPS[torch.float32])}
+        emit(row)
+        if not within:
+            fail(f"roi_align ({row['dtype']}) disagrees with its plain version: {row}")
+        if dtype == torch.float32:
+            rows["roi_align"] = row
+        del feats, got, want, err
+
+    for site, (G, N, thr, max_out, presorted) in NMS_CALLS.items():
+        boxes, scores = seeded_nms_inputs(gen, dev, G, N, presorted)
+        got = nms.nms(boxes, scores, thr, max_out=max_out, presorted=presorted)
+        want = nms.nms_plain(boxes, scores, thr, max_out=max_out, presorted=presorted)
+        torch.cuda.synchronize()
+        idx_diff = (got[0].long() - want[0].long()).abs()
+        mask_diff = (got[1].long() - want[1].long()).abs()
+        mismatches = int((idx_diff > 0).sum() + (mask_diff > 0).sum())
+        perm = torch.arange(N, device=dev).expand(G, N) if presorted else \
+            torch.sort(scores, dim=1, descending=True, stable=True).indices
+        sboxes = torch.gather(boxes, 1, perm[..., None].expand(G, N, 4)).contiguous()
+        order = None if presorted else perm.to(torch.int32).contiguous()
+        mask = nms.suppression_bitmask(sboxes, thr)
+        words = mask.shape[-1]
+        span = words - torch.arange(N, device=dev) // 64       # words from the diagonal on
+        upper_words = G * int(span.sum())
+        kept_words = int((torch.gather(got[1], 1, perm).long() * span).sum())
+        out_len = min(max_out, N) if max_out else N
+        out_bytes = G * out_len * 4 + G * N
+        order_bytes = 0 if presorted else G * N * 4
+        iou_ops = NMS_OPS_PER_PAIR * G * N * (N - 1) / 2
+        row = {"phase": "kernel", "name": site, "groups": G, "boxes": N,
+               "threshold": thr, "max_out": max_out, "presorted": presorted,
+               "kept_per_group": got[1].sum(dim=1).float().mean().item(),
+               "mismatches": mismatches,
+               "max_abs_err": float(max(idx_diff.max().item(), mask_diff.max().item())),
+               "kernel_ms": time_ms(lambda: nms.nms(boxes, scores, thr, max_out=max_out,
+                                                    presorted=presorted), 10),
+               "plain_ms": time_ms(lambda: nms.nms_plain(boxes, scores, thr, max_out=max_out,
+                                                         presorted=presorted), 1, warmup=0),
+               # no torchvision on the card's machine: no library NMS
+               "library_ms": None,
+               **bound(boxes.numel() * 4 + (0 if presorted else scores.numel() * 4)
+                       + out_bytes, iou_ops, PEAK_OPS[torch.float32]),
+               # the wrapper's two CUDA kernels, each timed alone. The
+               # bitmask computes the upper triangle's IoUs and writes its
+               # words; the scan needs the words of the kept rows only.
+               "bitmask": {"ms": time_ms(lambda: nms.suppression_bitmask(sboxes, thr), 10),
+                           **bound(sboxes.numel() * 4 + upper_words * 8, iou_ops,
+                                   PEAK_OPS[torch.float32])},
+               "scan": {"ms": time_ms(lambda: nms.greedy_scan(mask, order, max_out), 10),
+                        **bound(kept_words * 8 + order_bytes + out_bytes, 0,
+                                PEAK_OPS[torch.float32])}}
+        emit(row)
+        if mismatches:
+            fail(f"{site}: keep_idx/keep_mask differ from the plain version in "
+                 f"{mismatches} entries")
+        rows[site] = row
+        del boxes, scores, got, want, mask, sboxes
+    return rows
+
+
+def detector_setup(dev: torch.device):
+    cfg = DetectorConfig(num_classes=DET_CLASSES, num_att_classes=DET_ATTS, depth=DET_DEPTH,
+                         pooling_mode=det.POOLING_MODE, anchor_scales=det.ANCHOR_SCALES,
+                         anchor_ratios=det.ANCHOR_RATIOS)
+    params = init_detector(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    images = torch.rand((DET_BATCH,) + CANVAS + (3,), generator=gen, device=dev) * 255.0
+    im_info = torch.tensor([IM_INFO] * DET_BATCH, device=dev)
+    return cfg, params, images, im_info
+
+
+def extract(det_state, dev):
+    cfg, params, images, im_info = det_state
+    return extract_device_features(params, cfg, images, im_info, max_boxes=BOXES, test=TEST,
+                                   device=dev)
+
+
+def phase_detect(dev: torch.device, det_state) -> dict:
+    """The full-width detector through extract_device_features: a warm-up,
+    then one timed run with the kernels' launch counters read around it."""
+    extract(det_state, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    roi_align.launches = 0
+    nms.launches = 0
+    nms.launches_by_shape.clear()
+    t0 = time.time()
+    sel = extract(det_state, dev)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = {"roi_align": roi_align.launches, "nms": nms.launches,
+              **{site: nms.launches_by_shape[call[:2]] for site, call in NMS_CALLS.items()}}
+    expected = {"roi_align": 1, "nms": 2, "nms_rpn": 1, "nms_per_class": 1}
+    feats = sel["features"]
+    finite = bool(torch.isfinite(feats.float()).all())
+    emit({"phase": "detect", "batch": DET_BATCH, "canvas": list(CANVAS), "depth": DET_DEPTH,
+          "seconds": dt, "images_per_s": DET_BATCH / dt, "launches": counts,
+          "expected_launches": expected, "features": list(feats.shape),
+          "features_dtype": str(feats.dtype).split(".")[-1], "finite": finite,
+          "detections_per_image": sel["valid"].sum(dim=1).tolist(),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if list(feats.shape) != [DET_BATCH, BOXES, F] or not finite:
+        fail("detect produced bad features")
+    if counts != expected:
+        fail(f"detect launch counts {counts}, expected {expected}")
+    return counts
+
+
+def phase_detect_agree(dev: torch.device, det_state) -> None:
+    """Each kernel of the path held against its plain version on the path's
+    own inputs: the GPU's candidates, C4 map, rois and selection inputs are
+    copied to the CPU and run through the plain versions there. Whole
+    forwards are not compared: cuDNN and the CPU sum convolutions in other
+    orders, and a near-tie in the RPN scores may swap two proposals."""
+    cfg, params, images, im_info = det_state
+    cpu = torch.device("cpu")
+    post, thr = TEST.rpn_post_nms_top_n, TEST.rpn_nms_thresh
+    with torch.inference_mode():
+        base = resnet.backbone(params["resnet"], images)
+        cls, bbox = rpn_heads(params["rpn"], base)
+        anchors = anchors_for(base.shape[1], base.shape[2], cfg.feat_stride,
+                              cfg.anchor_scales, cfg.anchor_ratios, dev)
+        props, scores = proposal_candidates(cls, bbox, anchors, im_info,
+                                            pre_nms_top_n=TEST.rpn_pre_nms_top_n)
+        rois, _, valid = proposal_nms(props, scores, post_nms_top_n=post, nms_thresh=thr)
+        t0 = time.time()
+        rois_c, _, valid_c = proposal_nms(props.to(cpu), scores.to(cpu),
+                                          post_nms_top_n=post, nms_thresh=thr)
+        rpn_s = time.time() - t0
+        rpn_same = torch.equal(rois.cpu(), rois_c) and torch.equal(valid.cpu(), valid_c)
+        # informational: the candidates the CPU itself derives from the GPU's heads
+        props_c, _ = proposal_candidates(cls.cpu(), bbox.cpu(), anchors.cpu(), im_info.cpu(),
+                                         pre_nms_top_n=TEST.rpn_pre_nms_top_n)
+        cand_same = (props_c == props.cpu()).all(dim=-1).float().mean().item()
+
+        flat = rois.reshape(-1, 5)
+        kw = dict(spatial_scale=1.0 / cfg.feat_stride, pooled_height=cfg.pooling_size,
+                  pooled_width=cfg.pooling_size, sampling_ratio=2)
+        pooled_gpu = roi_align.roi_align(base, flat, **kw)
+        pooled = pooled_gpu.cpu()
+        t0 = time.time()
+        pooled_c = roi_align.roi_align_plain(base.cpu(), flat.cpu(), **kw)
+        roi_s = time.time() - t0
+        roi_err = (pooled - pooled_c).abs().max().item()
+        roi_tol = DETECT_AGREE_REL * max(pooled_c.abs().max().item(), 1.0)
+
+        out = detector_forward_test(params, cfg, images, im_info,
+                                    post_nms_top_n=post,
+                                    pre_nms_top_n=TEST.rpn_pre_nms_top_n, nms_thresh=thr)
+        pred = decode_boxes(out["rois"][..., 1:5], out["bbox_pred"], im_info,
+                            TEST.bbox_normalize_stds, TEST.bbox_normalize_means, im_info[:, 2],
+                            cfg.num_classes)
+        args = (out["cls_prob"], pred, out["pooled_feat"], out["cls_prob_atts"])
+        sel_kw = dict(thresh=TEST.score_thresh, nms_thresh=TEST.nms_thresh,
+                      max_per_image=min(TEST.max_per_image, BOXES))
+        sel = select_detections_device(*args, **sel_kw)
+        t0 = time.time()
+        sel_c = select_detections_device(*[a.cpu() for a in args], **sel_kw)
+        sel_s = time.time() - t0
+        sel_same = all(torch.equal(sel[k].cpu(), sel_c[k]) for k in sel)
+
+        def decode_and_select():
+            boxes = decode_boxes(out["rois"][..., 1:5], out["bbox_pred"], im_info,
+                                 TEST.bbox_normalize_stds, TEST.bbox_normalize_means,
+                                 im_info[:, 2], cfg.num_classes)
+            return select_detections_device(out["cls_prob"], boxes, out["pooled_feat"],
+                                            out["cls_prob_atts"], **sel_kw)
+
+        # device time of each stage on the same inputs (CUDA events, 3 runs
+        # after a warm-up); the class heads' products and softmax are the rest
+        stage_ms = {
+            "backbone": time_ms(lambda: resnet.backbone(params["resnet"], images), 3),
+            "rpn_heads": time_ms(lambda: rpn_heads(params["rpn"], base), 3),
+            "proposal_candidates": time_ms(lambda: proposal_candidates(
+                cls, bbox, anchors, im_info, pre_nms_top_n=TEST.rpn_pre_nms_top_n), 3),
+            "proposal_nms": time_ms(lambda: proposal_nms(
+                props, scores, post_nms_top_n=post, nms_thresh=thr), 3),
+            "roi_align": time_ms(lambda: roi_align.roi_align(base, flat, **kw), 3),
+            "head_to_tail": time_ms(lambda: resnet.head_to_tail(params["resnet"], pooled_gpu), 3),
+            "decode_and_select": time_ms(decode_and_select, 3),
+        }
+    emit({"phase": "detect_agree", "rpn_keep_identical": rpn_same,
+          "valid_proposals_per_image": valid.sum(dim=1).tolist(),
+          "cpu_candidates_identical_share": cand_same,
+          "roi_align_max_abs_err": roi_err, "roi_align_tolerance": roi_tol,
+          "pooled_abs_max": pooled_c.abs().max().item(),
+          "selection_identical": sel_same,
+          "detections_per_image": sel["valid"].sum(dim=1).tolist(),
+          "cpu_seconds": {"rpn_nms": rpn_s, "roi_align": roi_s, "selection": sel_s},
+          "gpu_stage_ms": stage_ms})
+    if not rpn_same:
+        fail("the RPN's NMS on the GPU and on the CPU kept different proposals")
+    if not roi_err <= roi_tol:
+        fail(f"pooled features on the path disagree: {roi_err} > {roi_tol}")
+    if not sel_same:
+        fail("the per-class NMS on the GPU and on the CPU selected different boxes")
+
+
+def phase_e2e(dev: torch.device, det_state, decode_state) -> None:
+    """Config 5 end to end: raw canvases → detector → bf16 features → CBS
+    decode (fused selection), timed warm as one run."""
+    harness, sentiment, tables = decode_state
+    for mod in KERNELS.values():
+        mod.launches = 0
+    nms.launches_by_shape.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sel = extract(det_state, dev)
+    best, best_lp = harness.decode_cbs(sel["features"], sentiment, None, tables, N_CONSTRAINTS,
+                                       torch.Generator(device=dev).manual_seed(7), N_Z,
+                                       selection="fused")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = {name: mod.launches for name, mod in KERNELS.items()}
+    counts.update({site: nms.launches_by_shape[call[:2]] for site, call in NMS_CALLS.items()})
+    expected = {"vocab_topk_lse": 0, "topk_lse": STEPS - 1, "roi_align": 1, "nms": 2,
+                "nms_rpn": 1, "nms_per_class": 1}
+    in_vocab = bool(((best >= 0) & (best < V)).all())
+    finite = bool(torch.isfinite(best_lp).all())
+    emit({"phase": "e2e", "selection": "fused", "seconds": dt,
+          "images_per_s": DET_BATCH / dt, "captions_per_s": DET_BATCH * N_Z / dt,
+          "shape": list(best.shape), "launches": counts, "expected_launches": expected,
+          "in_vocab": in_vocab, "finite_scores": finite})
+    if list(best.shape) != [N_Z, DET_BATCH, STEPS] or not in_vocab or not finite:
+        fail("e2e produced bad captions")
+    if counts != expected:
+        fail(f"e2e launch counts {counts}, expected {expected}")
 
 
 def main() -> int:
@@ -277,17 +639,24 @@ def main() -> int:
     k = BEAM // 2 + tables.exc_token.shape[-1]
     rows = phase_kernels(k, dev)
     phase_agree(dev)
-    launches = phase_decode(dev)
+    launches, decode_state = phase_decode(dev)
+    det_rows = phase_detector_kernels(dev)
+    det_state = detector_setup(dev)
+    launches.update(phase_detect(dev, det_state))
+    phase_detect_agree(dev, det_state)
+    phase_e2e(dev, det_state, decode_state)
 
     kernels = []
-    for name, row in rows.items():
+    for name, row in {**rows, **det_rows}.items():
         source, replaces = SOURCES[name]
+        err = row.get("max_abs_err")
+        if err is None:
+            err = max(row["max_abs_err_vals"], row["max_abs_err_lse"])
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": max(row["max_abs_err_vals"], row["max_abs_err_lse"]),
-                        "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        "max_abs_err": err, "ms": row["kernel_ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)

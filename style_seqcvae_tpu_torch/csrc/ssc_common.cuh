@@ -1,4 +1,4 @@
-// Helpers shared by the vocabulary-selection kernels.
+// Helpers shared by the port's kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,6 +13,15 @@ constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+}
 
 // Selection order of every top-k here (lax.top_k's): larger value first,
 // equal values by lower index. (v, i) comes before (w, j).

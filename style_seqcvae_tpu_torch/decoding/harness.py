@@ -20,7 +20,7 @@ from style_seqcvae_tpu_torch.decoding.cbs_fast import (
     fsm_to_device,
 )
 from style_seqcvae_tpu_torch.decoding.select import select_best_beam_simple
-from style_seqcvae_tpu_torch.device import resolve_device
+from style_seqcvae_tpu_torch.device import as_tensor, resolve_device
 from style_seqcvae_tpu_torch.models.captioner import (
     CaptionerConfig,
     make_decode_context,
@@ -62,13 +62,6 @@ def pad_tables_batch(tables_per_image: List[List[FSMTables]], n_z: int) -> FSMTa
         for f in FSMTables._fields])
 
 
-def _as_tensor(x, device, dtype=None):
-    if x is None:
-        return None
-    t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
-    return t.to(device=device, dtype=dtype or t.dtype)
-
-
 class DecodeHarness:
     def __init__(self, params: Dict[str, Any], cfg: CaptionerConfig,
                  device: Optional[Union[str, torch.device]] = None):
@@ -96,10 +89,10 @@ class DecodeHarness:
         ((n_z, B, S, K, T), (n_z, B, S, K)) with ``return_all``."""
         cfg, dev = self.cfg, self.device
         dtype = self.params["embedding"].dtype
-        feats = _as_tensor(feats, dev, dtype)
+        feats = as_tensor(feats, dev, dtype)
         B = feats.shape[0]
-        sentiment = _as_tensor(sentiment, dev)
-        obj_att_embeds = _as_tensor(obj_att_embeds, dev, dtype)
+        sentiment = as_tensor(sentiment, dev)
+        obj_att_embeds = as_tensor(obj_att_embeds, dev, dtype)
         stacked = tables if isinstance(tables, FSMTables) else pad_tables_batch(tables, n_z)
         fsm = fsm_to_device(stacked, dev)
         Z = fsm.default_dest.shape[0]
@@ -130,7 +123,7 @@ class DecodeHarness:
             return out, type(new_state)(*map(merge, new_state))
 
         if not isinstance(noise, torch.Generator):
-            noise = _as_tensor(noise, dev, torch.float32)
+            noise = as_tensor(noise, dev, torch.float32)
             if noise.shape[:3] != (Z, cfg.max_caption_length, B):
                 raise ValueError(f"noise must be (n_z, max_steps, B, S, K, z), got "
                                  f"{tuple(noise.shape)}")

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -18,3 +19,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def as_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None
+              ) -> Optional[torch.Tensor]:
+    """A numpy array or tensor (``None`` passes through) on ``device``, cast
+    to ``dtype`` when one is given."""
+    if x is None:
+        return None
+    t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+    return t.to(device=device, dtype=dtype or t.dtype)

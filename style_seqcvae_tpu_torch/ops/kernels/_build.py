@@ -103,6 +103,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (logits, vals, idx, lse, R, V, k, is_bf16, stream)
     lib.ssc_topk_lse.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.ssc_topk_lse.restype = i
+    f = ctypes.c_float
+    # (feat, rois, out, B, H, W, C, R, spatial_scale, pooled, sampling, is_bf16, stream)
+    lib.ssc_roi_align.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i, p]
+    lib.ssc_roi_align.restype = i
+    # (boxes, mask, G, N, threshold, stream)
+    lib.ssc_nms_bitmask.argtypes = [p, p, i, i, f, p]
+    lib.ssc_nms_bitmask.restype = i
+    # (mask, order, keep_idx, keep_mask, G, N, out_len, stream)
+    lib.ssc_nms_scan.argtypes = [p, p, p, p, i, i, i, p]
+    lib.ssc_nms_scan.restype = i
+    lib.ssc_nms_scan_smem_bytes.argtypes = [i]
+    lib.ssc_nms_scan_smem_bytes.restype = i
     lib.ssc_error_string.argtypes = [i]
     lib.ssc_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,4 +1,4 @@
-"""Carry the JAX package's captioner parameters over to the port.
+"""Carry the JAX package's captioner and detector parameters over to the port.
 
 The input is the JAX params pytree with numpy arrays as leaves, in its own
 nesting: a dict with ``embedding``, ``cell`` (a ``CellParams`` NamedTuple
@@ -58,6 +58,34 @@ def from_jax_params(tree: Dict[str, Any], *,
         if head in tree:
             params[head] = {k: t(v) for k, v in tree[head].items()}
     return params
+
+
+def from_jax_detector_params(tree: Dict[str, Any], *,
+                             device: Optional[Union[str, torch.device]] = None,
+                             dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """JAX detector params (numpy leaves) → the port's detector params on
+    ``device``: ``resnet`` (``conv1``, ``bn1``, ``layer1`` .. ``layer4`` lists
+    of bottleneck dicts with an optional ``downsample``), ``rpn`` (``conv``,
+    ``cls``, ``bbox``), ``cls_score``, ``bbox_pred`` and ``cls_score_atts``.
+    Conv kernels (the 4-D leaves) go from HWIO to OIHW, kept in
+    channels_last memory; nothing else changes layout. ``dtype`` casts
+    every leaf; ``None`` keeps the leaves' own type."""
+    if "resnet" not in tree:
+        raise NotImplementedError("only the ResNet backbone is ported (ROADMAP A8.1)")
+    dev = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        out = torch.from_numpy(np.array(node, copy=True))
+        out = out.to(device=dev, dtype=dtype or out.dtype)
+        if out.dim() == 4:                                  # HWIO → OIHW
+            out = out.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        return out
+
+    return convert(tree)
 
 
 def to_device(params: Any, device: Union[str, torch.device]) -> Any:

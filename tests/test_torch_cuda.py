@@ -10,7 +10,7 @@ without the JAX-side test configuration:
 import pytest
 import torch
 
-from style_seqcvae_tpu_torch.ops.kernels import topk_lse, vocab_topk_lse
+from style_seqcvae_tpu_torch.ops.kernels import nms, roi_align, topk_lse, vocab_topk_lse
 
 # Kernel A sums each E-long f32 dot product in another order than the plain
 # matmul: values and lse ~1e-5 apart at these widths, a few 1e-4 at worst
@@ -19,6 +19,11 @@ from style_seqcvae_tpu_torch.ops.kernels import topk_lse, vocab_topk_lse
 # plain version and selects in the same order: values and indices are equal.
 A_TOL = 1e-3
 LSE_TOL = 1e-3
+# Kernel C sums the 16 weighted corner reads of a bin in another order than
+# its plain version (same f32 weights): a few 1e-7 on O(1) features; in bf16
+# the f32 means may then round to neighbouring bf16 values, one ulp apart.
+ROI_F32_TOL = 1e-5
+ROI_BF16_RTOL = 2.0 ** -7
 
 
 @pytest.fixture
@@ -69,6 +74,73 @@ def test_topk_lse_kernel(dev, dtype, R, V, k):
     assert got[1][0].tolist() == list(range(k)) and torch.isneginf(got[2][0])
 
 
+def _rois(gen, dev, R, B, extent):
+    """Seeded RoIs: random boxes, boxes that leave the map, tiny boxes and
+    all-zero padding rows."""
+    xy = torch.rand(R, 2, generator=gen, device=dev) * extent * 1.2 - 0.1 * extent
+    wh = torch.rand(R, 2, generator=gen, device=dev) * extent * 0.5
+    b = torch.randint(0, B, (R, 1), generator=gen, device=dev).float()
+    rois = torch.cat([b, xy, xy + wh], dim=1)
+    rois[1::7, 3:] = rois[1::7, 1:3] + 0.5                  # tiny
+    rois[2::7] = 0.0                                         # padding rows
+    return rois.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,R,P,S", [(2, 38, 58, 1024, 300, 7, 2),
+                                           (3, 11, 13, 200, 50, 3, 1)])
+def test_roi_align_kernel(dev, dtype, B, H, W, C, R, P, S):
+    gen = torch.Generator(device=dev).manual_seed(C)
+    feats = torch.randn(B, H, W, C, generator=gen, device=dev).to(dtype)
+    rois = _rois(gen, dev, R, B, 16.0 * max(H, W))
+    kw = dict(spatial_scale=1 / 16.0, pooled_height=P, pooled_width=P, sampling_ratio=S)
+    before = roi_align.launches
+    got = roi_align.roi_align(feats, rois, **kw)
+    want = roi_align.roi_align_plain(feats, rois, **kw)
+    torch.cuda.synchronize()
+    assert roi_align.launches == before + 1
+    assert got.dtype == dtype and got.shape == (R, P, P, C)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=ROI_F32_TOL, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=ROI_BF16_RTOL)
+
+
+def _boxes(gen, dev, G, N, extent=600.0):
+    ctr = torch.rand(G, N, 2, generator=gen, device=dev) * extent
+    wh = torch.rand(G, N, 2, generator=gen, device=dev) * 150 + 1
+    return torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,N,thr,max_out,presorted", [
+    (16, 6000, 0.7, 300, True),       # the RPN's call at full width
+    (1280, 300, 0.3, 0, False),       # the per-class call at full width
+    (5, 77, 0.5, 10, False),          # N not a multiple of 64
+    (3, 64, 0.5, 100, True),          # max_out beyond N
+])
+def test_nms_kernel(dev, G, N, thr, max_out, presorted):
+    gen = torch.Generator(device=dev).manual_seed(N)
+    boxes = _boxes(gen, dev, G, N)
+    scores = torch.rand(G, N, generator=gen, device=dev)
+    scores[:, 3:9] = 0.5                                     # exact ties
+    boxes[:, 4] = boxes[:, 3]                                # a tied duplicate
+    boxes[:, 10] = torch.tensor([5.0, 5.0, 4.0, 3.0], device=dev)   # x2 < x1: area 0
+    if presorted:
+        order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+        scores = torch.gather(scores, 1, order)
+        boxes = torch.gather(boxes, 1, order[..., None].expand(G, N, 4)).contiguous()
+    before, before_shape = nms.launches, nms.launches_by_shape[(G, N)]
+    got = nms.nms(boxes, scores, thr, max_out=max_out, presorted=presorted)
+    want = nms.nms_plain(boxes, scores, thr, max_out=max_out, presorted=presorted)
+    torch.cuda.synchronize()
+    assert nms.launches == before + 1
+    assert nms.launches_by_shape[(G, N)] == before_shape + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_on_cuda_misuse(dev):
     x = torch.randn(8, 16, device=dev)
@@ -76,3 +148,12 @@ def test_wrappers_raise_on_cuda_misuse(dev):
         topk_lse.top_k_with_lse(x.T, 2)                     # not contiguous
     with pytest.raises(ValueError):
         vocab_topk_lse.matmul_top_k_with_lse(x, torch.randn(32, 16), 2)  # mixed devices
+    feats = torch.randn(1, 4, 4, 8, device=dev)
+    rois = torch.zeros(2, 5, device=dev)
+    with pytest.raises(ValueError):
+        roi_align.roi_align(feats.permute(0, 2, 1, 3), rois, spatial_scale=1.0)  # not NHWC
+    with pytest.raises(ValueError):
+        roi_align.roi_align(feats, rois.cpu(), spatial_scale=1.0)             # mixed devices
+    with pytest.raises(TypeError):
+        nms.nms(torch.zeros(1, 5, 4, device=dev, dtype=torch.float64),
+                torch.zeros(1, 5, device=dev), 0.5)

@@ -1,0 +1,277 @@
+"""The detector's ops in the port against the JAX package: box decoding and
+clipping, anchors, RoIAlign (kernel C's plain version, which its wrapper runs
+on CPU tensors) against the Pallas kernel in interpret mode and the XLA
+version, and greedy NMS (kernel D's plain version) against the Pallas kernel,
+the JAX ``nms`` and the numpy golden. The CUDA kernels themselves are held
+against these plain versions in test_torch_cuda.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from style_seqcvae_tpu.models.detector import anchors as janchors
+from style_seqcvae_tpu.ops import boxes as jboxes
+from style_seqcvae_tpu.ops.nms import nms as j_nms
+from style_seqcvae_tpu.ops.nms import nms_reference as j_nms_reference
+from style_seqcvae_tpu.ops.pallas.nms import nms_pallas, suppression_bitmask
+from style_seqcvae_tpu.ops.pallas.roi_align import roi_align_pallas as _roi_align_pallas
+from style_seqcvae_tpu.ops.roi_align import roi_align as _j_roi_align
+from style_seqcvae_tpu_torch.models.detector import anchors as tanchors
+from style_seqcvae_tpu_torch.ops import boxes as tboxes
+from style_seqcvae_tpu_torch.ops import nms as tnms
+from style_seqcvae_tpu_torch.ops.kernels import nms as nms_kernel
+from style_seqcvae_tpu_torch.ops.kernels import roi_align as roi_align_kernel
+from style_seqcvae_tpu_torch.ops.roi_align import roi_align as t_roi_align
+
+torch.set_num_threads(1)
+
+# f32 RoIAlign: both sides form the same f32 bilinear weights and sum 16
+# products of O(1) values in another order -> a few 1e-7.
+ROI_F32_TOL = 1e-5
+# bf16 RoIAlign: both sides read the same bf16 values exactly as f32 and
+# round the f32 mean to bf16 once; a different summation order can round
+# to the neighbouring bf16 value: one bf16 ulp, 2^-7 relative.
+ROI_BF16_RTOL = 2.0 ** -7
+
+# the edge RoIs of tests/test_pallas_roi_align.py: past the map, inside,
+# on the second image, mostly outside, tiny
+EDGE_ROIS = np.array([
+    [0, 0, 0, 100, 120],
+    [0, 16, 8, 64, 96],
+    [1, 5, 5, 40, 30],
+    [1, 100, 100, 110, 105],
+    [0, 0, 0, 3, 3],
+    [0, 0, 0, 0, 0],                  # an all-zero padding row
+    [1, -30, -12, 9, 7],              # starts left of and above the map
+], np.float32)
+
+
+_ROI_STATIC = ("spatial_scale", "pooled_height", "pooled_width", "sampling_ratio")
+roi_align_pallas = jax.jit(_roi_align_pallas, static_argnames=_ROI_STATIC + ("interpret",))
+j_roi_align = jax.jit(_j_roi_align, static_argnames=_ROI_STATIC)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+# --------------------------------------------------------------- boxes, anchors
+
+def test_bbox_transform_inv_and_clip_match_jax():
+    rng = np.random.RandomState(0)
+    xy = rng.rand(2, 9, 2).astype(np.float32) * 60
+    boxes = np.concatenate([xy, xy + rng.rand(2, 9, 2).astype(np.float32) * 30], -1)
+    deltas = rng.randn(2, 9, 4 * 5).astype(np.float32)
+    deltas[0, 0, 2] = 30.0                       # dw past the +10 clamp
+    deltas[1, 3, 7] = -25.0                      # dh past the -10 clamp
+    want = np.asarray(jboxes.bbox_transform_inv(jnp.asarray(boxes), jnp.asarray(deltas)))
+    got = tboxes.bbox_transform_inv(_t(boxes), _t(deltas)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+    # the strided layout: class j's coordinates are columns 4j..4j+3
+    np.testing.assert_allclose(
+        got[..., 8:12], tboxes.bbox_transform_inv(_t(boxes), _t(deltas[..., 8:12])).numpy(),
+        rtol=0, atol=0)
+
+    want_c = np.asarray(jboxes.clip_boxes(jnp.asarray(want), 50.0, 70.0))
+    got_c = tboxes.clip_boxes(_t(want), 50.0, 70.0).numpy()
+    np.testing.assert_array_equal(got_c, want_c)
+    # per-image bounds broadcast over (B, 1, 1)
+    hw = np.array([[40.0, 60.0], [70.0, 30.0]], np.float32)
+    got_b = tboxes.clip_boxes(_t(want), _t(hw[:, 0, None, None]), _t(hw[:, 1, None, None]))
+    for b in range(2):
+        np.testing.assert_array_equal(
+            got_b[b].numpy(), np.asarray(jboxes.clip_boxes(jnp.asarray(want[b]), hw[b, 0],
+                                                           hw[b, 1])))
+
+
+@pytest.mark.parametrize("scales,ratios", [((4, 8, 16, 32), (0.5, 1, 2)), ((2, 4), (0.5, 1.0, 2.0))])
+def test_anchors_equal_jax(scales, ratios):
+    want = janchors.generate_anchors(16, ratios, scales)
+    got = tanchors.generate_anchors(16, ratios, scales)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tanchors.shifted_anchors(38, 58, 16, got),
+                                  janchors.shifted_anchors(38, 58, 16, want))
+
+
+# ------------------------------------------------------------------- RoIAlign
+
+@pytest.mark.parametrize("pooled,sampling", [(7, 2), (3, 1)])
+def test_roi_align_plain_matches_jax_f32(pooled, sampling):
+    rng = np.random.RandomState(0)
+    feats = rng.randn(2, 12, 14, 8).astype(np.float32)
+    kw = dict(spatial_scale=1 / 8.0, pooled_height=pooled, pooled_width=pooled,
+              sampling_ratio=sampling)
+    want_pallas = np.asarray(roi_align_pallas(jnp.asarray(feats), jnp.asarray(EDGE_ROIS),
+                                              interpret=True, **kw))
+    want_xla = np.asarray(j_roi_align(jnp.asarray(feats), jnp.asarray(EDGE_ROIS), **kw))
+    got = t_roi_align(_t(feats), _t(EDGE_ROIS), **kw)
+    assert got.dtype == torch.float32 and got.shape == (len(EDGE_ROIS), pooled, pooled, 8)
+    for want in (want_pallas, want_xla):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ROI_F32_TOL)
+    # the kernel's wrapper runs the plain version on CPU tensors
+    np.testing.assert_array_equal(
+        roi_align_kernel.roi_align(_t(feats), _t(EDGE_ROIS), **kw).numpy(), got.numpy())
+
+
+def test_roi_align_plain_matches_jax_bf16():
+    rng = np.random.RandomState(1)
+    feats = rng.randn(2, 12, 14, 16).astype(np.float32)
+    fb = torch.from_numpy(feats).to(torch.bfloat16)
+    kw = dict(spatial_scale=1 / 8.0, pooled_height=7, pooled_width=7, sampling_ratio=2)
+    jf = jnp.asarray(fb.float().numpy()).astype(jnp.bfloat16)
+    want_pallas = np.asarray(roi_align_pallas(jf, jnp.asarray(EDGE_ROIS), interpret=True,
+                                              **kw).astype(jnp.float32))
+    # the XLA version returns its f32 sums; the detector casts them
+    want_xla = np.asarray(j_roi_align(jf, jnp.asarray(EDGE_ROIS), **kw)
+                          .astype(jnp.bfloat16).astype(jnp.float32))
+    got = t_roi_align(fb, _t(EDGE_ROIS), **kw)
+    assert got.dtype == torch.bfloat16
+    for want in (want_pallas, want_xla):
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=ROI_BF16_RTOL, atol=1e-6)
+
+
+def test_roi_align_chunks_cover_many_rois():
+    """More RoIs than one gather chunk: the chunked loop matches the XLA
+    version row for row."""
+    rng = np.random.RandomState(2)
+    feats = rng.randn(3, 9, 11, 4).astype(np.float32)
+    R = 600
+    xy = rng.rand(R, 2).astype(np.float32) * 150 - 10
+    wh = rng.rand(R, 2).astype(np.float32) * 80
+    rois = np.concatenate([rng.randint(0, 3, (R, 1)).astype(np.float32), xy, xy + wh], 1)
+    kw = dict(spatial_scale=1 / 16.0, pooled_height=7, pooled_width=7, sampling_ratio=2)
+    want = np.asarray(j_roi_align(jnp.asarray(feats), jnp.asarray(rois), **kw))
+    np.testing.assert_allclose(t_roi_align(_t(feats), _t(rois), **kw).numpy(), want,
+                               rtol=0, atol=ROI_F32_TOL)
+
+
+# ------------------------------------------------------------------------ NMS
+
+def random_boxes(rng, n, extent=60.0, size=30.0):
+    ctr = rng.rand(n, 2) * extent
+    wh = rng.rand(n, 2) * size + 2
+    return np.concatenate([ctr - wh / 2, ctr + wh / 2], 1).astype(np.float32)
+
+
+_JAX_NMS_CACHE = {}
+
+
+def _jax_nms(boxes, scores, thr, max_out=0, presorted=False):
+    """(keep_idx, keep_mask) of the Pallas kernel (interpret mode) and of
+    the JAX ``nms``, per group; computed once per input for both impls."""
+    key = (boxes.tobytes(), scores.tobytes(), boxes.shape, thr, max_out, presorted)
+    if key not in _JAX_NMS_CACHE:
+        _JAX_NMS_CACHE[key] = _jax_nms_uncached(boxes, scores, thr, max_out, presorted)
+    return _JAX_NMS_CACHE[key]
+
+
+_J_NMS_PALLAS = jax.jit(nms_pallas, static_argnums=(2,),
+                        static_argnames=("max_out", "interpret", "presorted"))
+_J_NMS = jax.jit(j_nms, static_argnums=(2,), static_argnames=("max_out",))
+
+
+def _jax_nms_uncached(boxes, scores, thr, max_out, presorted):
+    outs = []
+    for b, s in zip(boxes, scores):
+        kp = _J_NMS_PALLAS(jnp.asarray(b), jnp.asarray(s), thr, max_out=max_out,
+                           interpret=True, presorted=presorted)
+        kx = _J_NMS(jnp.asarray(b), jnp.asarray(s), thr, max_out=max_out)
+        outs.append(((np.asarray(kp[0]), np.asarray(kp[1])),
+                     (np.asarray(kx[0]), np.asarray(kx[1]))))
+    return outs
+
+
+IMPLS = {"plain": tnms.nms, "kernel_wrapper": nms_kernel.nms}
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+@pytest.mark.parametrize("n,thr,max_out", [(60, 0.5, 0), (200, 0.7, 0), (130, 0.3, 17)])
+def test_nms_matches_jax_and_reference(impl, n, thr, max_out):
+    rng = np.random.RandomState(n)
+    G = 3
+    boxes = np.stack([random_boxes(rng, n) for _ in range(G)])
+    scores = rng.rand(G, n).astype(np.float32)
+    before = (nms_kernel.launches, dict(nms_kernel.launches_by_shape))
+    keep_idx, keep_mask = IMPLS[impl](_t(boxes), _t(scores), thr, max_out=max_out)
+    # on CPU tensors the wrapper runs the plain version and counts no launch
+    assert (nms_kernel.launches, dict(nms_kernel.launches_by_shape)) == before
+    assert keep_idx.dtype == torch.int32 and keep_mask.dtype == torch.bool
+    assert keep_idx.shape == (G, max_out or n) and keep_mask.shape == (G, n)
+    for g, refs in enumerate(_jax_nms(boxes, scores, thr, max_out)):
+        for ref_idx, ref_mask in refs:
+            np.testing.assert_array_equal(keep_idx[g].numpy(), ref_idx)
+            np.testing.assert_array_equal(keep_mask[g].numpy(), ref_mask)
+        golden = j_nms_reference(boxes[g], scores[g], thr)
+        np.testing.assert_array_equal(tnms.nms_reference(boxes[g], scores[g], thr), golden)
+        kept = keep_idx[g].numpy()
+        kept = kept[kept >= 0]
+        np.testing.assert_array_equal(kept, golden[:len(kept)])
+        assert keep_mask[g].sum().item() == len(golden)
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_nms_ties_zero_area_and_padding(impl):
+    """Exact score ties go to the lower index; duplicate boxes, zero-area
+    and degenerate (x2 < x1) boxes, zero padding rows at score 0; N not a
+    multiple of 64."""
+    rng = np.random.RandomState(5)
+    n = 77
+    boxes = random_boxes(rng, n)
+    scores = rng.rand(n).astype(np.float32)
+    scores[10:20] = 0.5                                   # a run of exact ties
+    boxes[11] = boxes[10]                                 # duplicate, tied score
+    boxes[30] = [5, 5, 5, 5]                              # zero extent: area 1 under +1
+    boxes[31] = [9, 9, 7, 8]                              # x2 < x1: area 0
+    boxes[32] = boxes[30]
+    scores[32] = scores[30]
+    boxes[70:] = 0.0                                      # padding rows
+    scores[70:] = 0.0
+    boxes, scores = boxes[None], scores[None]
+    for thr in (0.3, 0.7):
+        keep_idx, keep_mask = IMPLS[impl](_t(boxes), _t(scores), thr)
+        for ref_idx, ref_mask in _jax_nms(boxes, scores, thr)[0]:
+            np.testing.assert_array_equal(keep_idx[0].numpy(), ref_idx)
+            np.testing.assert_array_equal(keep_mask[0].numpy(), ref_mask)
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_nms_presorted(impl):
+    """``presorted`` skips the sort and gives what the sorting call gives on
+    score-sorted input (the RPN's case, ties included)."""
+    rng = np.random.RandomState(9)
+    n = 150
+    boxes = random_boxes(rng, n, extent=40.0)
+    scores = np.sort(rng.rand(n).astype(np.float32))[::-1].copy()
+    scores[40:45] = scores[40]
+    b, s = _t(boxes[None]), _t(scores[None])
+    got = IMPLS[impl](b, s, 0.7, max_out=60, presorted=True)
+    want = IMPLS[impl](b, s, 0.7, max_out=60)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    (ref_idx, ref_mask), _ = _jax_nms(boxes[None], scores[None], 0.7, 60, presorted=True)[0]
+    np.testing.assert_array_equal(got[0][0].numpy(), ref_idx)
+    np.testing.assert_array_equal(got[1][0].numpy(), ref_mask)
+
+
+def test_suppression_matrix_equals_pallas_bitmask():
+    """Bit for bit: the port's pairwise suppression matrix against the Pallas
+    kernel's packed words (16 bits per int32), unpacked."""
+    rng = np.random.RandomState(3)
+    n = 128
+    boxes = random_boxes(rng, n, extent=30.0)
+    for thr in (0.3, 0.7):
+        words = np.asarray(suppression_bitmask(jnp.asarray(boxes), thr, interpret=True))
+        want = ((words[:, :, None] >> np.arange(16)) & 1).reshape(n, n).astype(bool)
+        got = tnms.suppression_matrix(_t(boxes[None]), thr)[0].numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_nms_empty_and_grouped_shapes():
+    keep_idx, keep_mask = tnms.nms(torch.zeros((2, 0, 4)), torch.zeros((2, 0)), 0.5)
+    assert keep_idx.shape == (2, 0) and keep_mask.shape == (2, 0)
+    with pytest.raises(ValueError):
+        nms_kernel.nms(torch.zeros((5, 4)), torch.zeros((5,)), 0.5)      # not grouped
+    with pytest.raises(TypeError):
+        nms_kernel.nms(torch.zeros((1, 5, 4), dtype=torch.float64), torch.zeros((1, 5)), 0.5)

@@ -9,13 +9,16 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import style_seqcvae_tpu_torch
 from style_seqcvae_tpu_torch.decoding.harness import DecodeHarness
 from style_seqcvae_tpu_torch.models.captioner import CaptionerConfig, init_captioner
-from style_seqcvae_tpu_torch.weights import from_jax_params
+from style_seqcvae_tpu_torch.models.detector.extract import extract_device_features
+from style_seqcvae_tpu_torch.models.detector.faster_rcnn import DetectorConfig, init_detector
+from style_seqcvae_tpu_torch.weights import from_jax_detector_params, from_jax_params
 
 torch.set_num_threads(1)
 
@@ -37,7 +40,12 @@ def _run(code_or_args, cwd, timeout=120):
 
 def test_port_imports_no_jax():
     modules = _port_modules()
-    assert "style_seqcvae_tpu_torch.ops.kernels.vocab_topk_lse" in modules
+    for name in ("ops.kernels.vocab_topk_lse", "ops.kernels.topk_lse",
+                 "ops.kernels.roi_align", "ops.kernels.nms", "ops.roi_align", "ops.nms",
+                 "ops.boxes", "models.detector.anchors", "models.detector.defaults",
+                 "models.detector.resnet", "models.detector.rpn",
+                 "models.detector.faster_rcnn", "models.detector.extract"):
+        assert "style_seqcvae_tpu_torch." + name in modules
     code = "\n".join([
         "import sys",
         # a None entry makes any import of these names raise ImportError
@@ -69,6 +77,21 @@ def test_entry_points_refuse_cpu_fallback():
         DecodeHarness(params, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_jax_params({"embedding": params["embedding"].numpy()})
+
+
+def test_detector_entry_points_refuse_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    cfg = DetectorConfig(num_classes=3, num_att_classes=0, depth=50)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_detector(cfg)
+    params = init_detector(cfg, device="cpu")
+    images = np.zeros((1, 32, 32, 3), np.float32)
+    im_info = np.array([[32.0, 32.0, 1.0]], np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_device_features(params, cfg, images, im_info)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_jax_detector_params({"resnet": {"conv1": np.zeros((7, 7, 3, 64), np.float32)}})
 
 
 def test_chip_smoke_fails_without_gpu():
