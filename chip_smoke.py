@@ -7,11 +7,13 @@ Needs one CUDA GPU (an H100 for the ``sm_90a`` kernels) and ``nvcc``; makes
 its weights, features, FSM tables and z-noise from seeds, in-process. Prints
 one JSON line per phase as it goes:
 
-1. ``build``: the CUDA kernels built from ``style_seqcvae_tpu_torch/csrc``;
+1. ``build``: the CUDA kernels built from ``style_seqcvae_tpu_torch/csrc``,
+   then kernel A's registers and spills as ``-Xptxas -v`` reported them;
 2. ``kernel``: each kernel against its plain PyTorch version at the flagship
    decode shapes, in bf16 and f32, with its time, the plain version's time
    and the least time the card could take (fails above the stated
-   tolerances);
+   tolerances); kernel A's bf16 path also at a ragged shape (R = 1,000,
+   E = 300, which the wrapper pads to 304);
 3. ``agree``: a small f32 decode through the kernels on the GPU against the
    same decode through the plain versions on the CPU;
 4. ``decode``: the full-width Style-SeqCVAE CBS decode (BASELINE.json config
@@ -40,6 +42,7 @@ non-zero before the last line. Exits non-zero at once without a GPU.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -122,7 +125,8 @@ ROI_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-6, 2.0 ** -7)}
 DETECT_AGREE_REL = 1e-5
 
 SOURCES = {
-    "vocab_topk_lse": ("style_seqcvae_tpu_torch/csrc/vocab_topk_lse.cu",
+    # the summary row is the bf16 path's; f32 runs csrc/vocab_topk_lse.cu
+    "vocab_topk_lse": ("style_seqcvae_tpu_torch/csrc/vocab_topk_lse_sm90.cu",
                        "style_seqcvae_tpu/ops/pallas/vocab_topk_lse.py:113"),
     "topk_lse": ("style_seqcvae_tpu_torch/csrc/topk_lse.cu",
                  "style_seqcvae_tpu/ops/pallas/topk_lse.py:76"),
@@ -185,6 +189,26 @@ def synthetic_fsm(rng: np.random.RandomState, vocab: int) -> np.ndarray:
     return fsm
 
 
+def ptxas_entries(log: str, needle: str) -> list:
+    """Registers, static shared memory, stack and spills that ``-Xptxas -v``
+    reported for each entry function whose name holds ``needle``."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"function": m.group(1)} if needle in m.group(1) else None
+            if cur is not None:
+                out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            nums = [int(n) for n in re.findall(r"(\d+) bytes", ln)]
+            cur.update(stack_bytes=nums[0], spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
 def phase_build() -> None:
     t0 = time.time()
     path = _build.build()
@@ -194,11 +218,53 @@ def phase_build() -> None:
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "library": str(path),
           "ptxas": ptxas})
+    # kernel A's two paths: bf16 (wgmma product + partial top-k, then the
+    # merge) and f32 (CUDA cores); its bf16 shared memory is dynamic
+    emit({"phase": "build_vocab_topk_lse", "ptxas": ptxas_entries(log, "vocab_topk_lse")})
+
+
+def kernel_row(name: str, c: dict, dtype: torch.dtype, shape: dict) -> dict:
+    """Run one kernel case against its plain version, time both, emit the
+    row and fail above the tolerance."""
+    got = c["kernel"]()
+    want = c["plain"]()
+    torch.cuda.synchronize()
+    vals_err = (got[0] - want[0]).abs().max().item()
+    lse_err = (got[2] - want[2]).abs().max().item()
+    agree = (got[1] == want[1]).float().mean().item()
+    kernel_ms = time_ms(c["kernel"], c["kernel_reps"])
+    plain_ms = time_ms(c["plain"], c["plain_reps"])
+    row = {"phase": "kernel", "name": name, "dtype": str(dtype).split(".")[-1], **shape,
+           "max_abs_err_vals": vals_err, "max_abs_err_lse": lse_err,
+           "idx_agree": agree, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           # no single PyTorch call computes top-k with logsumexp
+           "library_ms": None,
+           **bound(c["bytes"], c["ops"], c["peak"]),
+           "tolerance": TOL[name], **c.get("extra", {})}
+    emit(row)
+    tol = TOL[name]
+    if not (vals_err <= tol["vals"] and lse_err <= tol["lse"] and agree >= tol["idx_agree"]):
+        fail(f"{name} ({row['dtype']}) disagrees with its plain version: {row}")
+    return row
+
+
+def vocab_case(x: torch.Tensor, emb: torch.Tensor, k: int) -> dict:
+    (R, E), V = x.shape, emb.shape[0]
+    size = x.element_size()
+    extra = {}
+    if x.dtype == torch.bfloat16:
+        extra["plan"] = vocab_topk_lse.bf16_plan(R, V, E + (-E % 8), k)
+    return dict(kernel=lambda: vocab_topk_lse.matmul_top_k_with_lse(x, emb, k),
+                plain=lambda: vocab_topk_lse.matmul_top_k_with_lse_plain(x, emb, k),
+                bytes=(R * E + V * E) * size + R * k * 8 + R * 4,
+                ops=2 * R * V * E, peak=PEAK_OPS[x.dtype],
+                kernel_reps=5, plain_reps=2, extra=extra)
 
 
 def phase_kernels(k: int, dev: torch.device) -> dict:
-    """Each kernel against its plain version at the flagship shapes; returns
-    the bf16 rows for the summary line."""
+    """Each kernel against its plain version at the flagship shapes, and
+    kernel A's bf16 path at a ragged shape; returns the bf16 flagship rows
+    for the summary line."""
     R = BATCH * N_Z * STATES * BEAM
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
@@ -208,12 +274,7 @@ def phase_kernels(k: int, dev: torch.device) -> dict:
         emb = torch.randn(V, E, generator=gen, device=dev).to(dtype)
         logits = torch.matmul(x, emb.T)                # the fused path's (R, V) logits
         cases = {
-            "vocab_topk_lse": dict(
-                kernel=lambda: vocab_topk_lse.matmul_top_k_with_lse(x, emb, k),
-                plain=lambda: vocab_topk_lse.matmul_top_k_with_lse_plain(x, emb, k),
-                bytes=(R * E + V * E) * size + R * k * 8 + R * 4,
-                ops=2 * R * V * E, peak=PEAK_OPS[dtype],
-                kernel_reps=5, plain_reps=2),
+            "vocab_topk_lse": vocab_case(x, emb, k),
             "topk_lse": dict(
                 kernel=lambda: topk_lse.top_k_with_lse(logits, k),
                 plain=lambda: topk_lse.top_k_with_lse_plain(logits, k),
@@ -223,27 +284,8 @@ def phase_kernels(k: int, dev: torch.device) -> dict:
                 kernel_reps=10, plain_reps=2),
         }
         for name, c in cases.items():
-            got = c["kernel"]()
-            want = c["plain"]()
-            torch.cuda.synchronize()
-            vals_err = (got[0] - want[0]).abs().max().item()
-            lse_err = (got[2] - want[2]).abs().max().item()
-            agree = (got[1] == want[1]).float().mean().item()
-            kernel_ms = time_ms(c["kernel"], c["kernel_reps"])
-            plain_ms = time_ms(c["plain"], c["plain_reps"])
-            row = {"phase": "kernel", "name": name, "dtype": str(dtype).split(".")[-1],
-                   "rows": R, "vocab": V, "width": E if name == "vocab_topk_lse" else None,
-                   "k": k, "max_abs_err_vals": vals_err, "max_abs_err_lse": lse_err,
-                   "idx_agree": agree, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                   # no single PyTorch call computes top-k with logsumexp
-                   "library_ms": None,
-                   **bound(c["bytes"], c["ops"], c["peak"]),
-                   "tolerance": TOL[name]}
-            emit(row)
-            tol = TOL[name]
-            if not (vals_err <= tol["vals"] and lse_err <= tol["lse"]
-                    and agree >= tol["idx_agree"]):
-                fail(f"{name} ({row['dtype']}) disagrees with its plain version: {row}")
+            row = kernel_row(name, c, dtype, {"rows": R, "vocab": V, "k": k, "width":
+                                              E if name == "vocab_topk_lse" else None})
             if dtype == torch.bfloat16:
                 out[name] = row
         # yardsticks, for scale only: cuBLAS's head matmul alone and torch.topk alone
@@ -251,6 +293,12 @@ def phase_kernels(k: int, dev: torch.device) -> dict:
               "torch_matmul_head_ms": time_ms(lambda: torch.matmul(x, emb.T), 5),
               "torch_topk_ms": time_ms(lambda: torch.topk(logits, k), 5)})
         del x, emb, logits
+    # ragged rows and a width that TMA's 16-byte rows need padded (300 -> 304)
+    r_rag, e_rag = 1000, 300
+    x = torch.tanh(torch.randn(r_rag, e_rag, generator=gen, device=dev)).to(torch.bfloat16)
+    emb = torch.randn(V, e_rag, generator=gen, device=dev).to(torch.bfloat16)
+    kernel_row("vocab_topk_lse", vocab_case(x, emb, k), torch.bfloat16,
+               {"rows": r_rag, "vocab": V, "k": k, "width": e_rag})
     return out
 
 

@@ -1,19 +1,22 @@
-// Tied vocabulary head fused with a streaming top-k and logsumexp, for
-// Hopper (sm_90a).
+// Tied vocabulary head fused with a streaming top-k and logsumexp: the f32
+// path, on the CUDA cores of Hopper (sm_90a).
 //
 // Replaces the TPU kernel style_seqcvae_tpu/ops/pallas/vocab_topk_lse.py::
-// matmul_top_k_with_lse (body `_kernel`, :43-110): x (R, E) and emb (V, E),
-// both bf16 or both f32 -> the top-k of the logits x . emb^T per row as
+// matmul_top_k_with_lse (body `_kernel`, :43-110) for f32 inputs: x (R, E)
+// and emb (V, E), both f32 -> the top-k of the logits x . emb^T per row as
 // values (R, k) f32 and indices (R, k) i32 (ties to the lower index), and
 // the row logsumexp (R,) f32. The (R, V) logits never reach device memory.
+// bf16 inputs go to the tensor-core kernel in vocab_topk_lse_sm90.cu; this
+// one stays for f32 because the tensor cores cannot form an exact f32
+// product (TF32 would change the results).
 //
 // Design: one block of 256 threads owns kRows = 32 rows and loops over the
 // vocabulary in tiles of kCols = 128 columns; this loop takes the place of
 // the TPU kernel's sequential V grid axis, and the running state it carried
 // in VMEM scratch lives in shared memory. Per tile:
-//   1. logits: x and emb are staged in shared memory (as f32, kDepth = 32 of
-//      E at a time) and each thread accumulates a 4 x 4 block of the tile
-//      with f32 FMAs; the tile goes to shared memory.
+//   1. logits: x and emb are staged in shared memory (kDepth = 32 of E at a
+//      time) and each thread accumulates a 4 x 4 block of the tile with f32
+//      FMAs; the tile goes to shared memory.
 //   2. one warp per row merges the tile: the running max and sum of
 //      exp(x - max) are rescaled (the streaming logsumexp), then every
 //      column that comes before the current k-th entry in selection order
@@ -25,12 +28,8 @@
 //
 // Bound on an H100 SXM: operations. At the flagship decode grid (R =
 // 12,800, V = 10,500, E = 600) a launch does 2 * R * V * E = 161 GFLOP,
-// about 0.16 ms at the 989 TFLOP/s bf16 dense tensor-core peak; it must
-// move only 15 MB of x and emb. This simple design runs the product on the
-// CUDA cores in f32 FMA (67 TFLOP/s peak) and is limited by shared-memory
-// loads before that, so it runs tens of times slower than the bound; wgmma
-// with TMA-fed tiles is the route to the bound. PERF.md records the
-// measured time beside it.
+// 2.41 ms at the 67 TFLOP/s f32 peak of the CUDA cores. This design is
+// limited by shared-memory loads before that; PERF.md records its time.
 #include "ssc_common.cuh"
 
 namespace {
@@ -189,28 +188,16 @@ vocab_topk_lse_kernel(const T* __restrict__ x, const T* __restrict__ emb,
 
 }  // namespace
 
-// x (R, E), emb (V, E) -> vals (R, k), idx (R, k), lse (R,); k < kMaxK.
+// x (R, E), emb (V, E) f32 -> vals (R, k), idx (R, k), lse (R,); k < kMaxK.
 // Returns cudaGetLastError().
-extern "C" int ssc_vocab_topk_lse(const void* x, const void* emb, void* vals, void* idx,
-                                  void* lse, int R, int V, int E, int k, int is_bf16,
-                                  void* stream) {
+extern "C" int ssc_vocab_topk_lse_f32(const void* x, const void* emb, void* vals, void* idx,
+                                      void* lse, int R, int V, int E, int k, void* stream) {
   const size_t smem = smem_floats(k) * sizeof(float);
   const dim3 grid((R + kRows - 1) / kRows);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    auto kern = vocab_topk_lse_kernel<__nv_bfloat16>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    kern<<<grid, kThreads, smem, st>>>(static_cast<const __nv_bfloat16*>(x),
-                                       static_cast<const __nv_bfloat16*>(emb),
-                                       static_cast<float*>(vals), static_cast<int*>(idx),
-                                       static_cast<float*>(lse), R, V, E, k);
-  } else {
-    auto kern = vocab_topk_lse_kernel<float>;
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    kern<<<grid, kThreads, smem, st>>>(static_cast<const float*>(x),
-                                       static_cast<const float*>(emb),
-                                       static_cast<float*>(vals), static_cast<int*>(idx),
-                                       static_cast<float*>(lse), R, V, E, k);
-  }
+  auto kern = vocab_topk_lse_kernel<float>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(emb), static_cast<float*>(vals),
+      static_cast<int*>(idx), static_cast<float*>(lse), R, V, E, k);
   return static_cast<int>(cudaGetLastError());
 }

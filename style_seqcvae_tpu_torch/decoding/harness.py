@@ -62,6 +62,11 @@ def pad_tables_batch(tables_per_image: List[List[FSMTables]], n_z: int) -> FSMTa
         for f in FSMTables._fields])
 
 
+def pad_tables(tables: List[FSMTables], n_z: int) -> FSMTables:
+    """Single-image form of :func:`pad_tables_batch` → (Z, 1, S[, E])."""
+    return pad_tables_batch([tables], n_z)
+
+
 class DecodeHarness:
     def __init__(self, params: Dict[str, Any], cfg: CaptionerConfig,
                  device: Optional[Union[str, torch.device]] = None):
@@ -80,10 +85,12 @@ class DecodeHarness:
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``selection``: "prehead" (kernel A) or "fused" (kernel B).
         feats (B, N, F); sentiment (B, 1) or None; obj_att_embeds (B, N, z)
-        or None; ``tables`` is per-image ``List[List[FSMTables]]`` or an
-        already padded (n_z, B, S[, E]) FSMTables; num_constraints (B,) or a
-        scalar. ``noise``: z-noise in the JAX layout (n_z, max_steps, B, S, K,
-        z), or a ``torch.Generator`` on the decode device that draws it.
+        or None; ``tables`` is per-z ``List[FSMTables]`` (B = 1), per-image
+        ``List[List[FSMTables]]`` or an already padded (n_z, B, S[, E])
+        FSMTables; num_constraints (B,), or fewer, whose first entry then
+        holds for every image. ``noise``: z-noise in the JAX layout (n_z,
+        max_steps, B, S, K, z), or a ``torch.Generator`` on the decode device
+        that draws it.
 
         Returns (best (n_z, B, T), best_lp (n_z, B)), or all beams
         ((n_z, B, S, K, T), (n_z, B, S, K)) with ``return_all``."""
@@ -93,15 +100,23 @@ class DecodeHarness:
         B = feats.shape[0]
         sentiment = as_tensor(sentiment, dev)
         obj_att_embeds = as_tensor(obj_att_embeds, dev, dtype)
-        stacked = tables if isinstance(tables, FSMTables) else pad_tables_batch(tables, n_z)
+        if isinstance(tables, FSMTables):
+            stacked = tables
+        elif tables and isinstance(tables[0], FSMTables):
+            if B != 1:
+                raise ValueError(f"a per-z List[FSMTables] is for one image, got B={B}; "
+                                 "pass per-image lists for a batch")
+            stacked = pad_tables(list(tables), n_z)
+        else:
+            stacked = pad_tables_batch(tables, n_z)
         fsm = fsm_to_device(stacked, dev)
         Z = fsm.default_dest.shape[0]
         if Z != n_z or fsm.default_dest.shape[1] != B:
             raise ValueError(f"tables are {tuple(fsm.default_dest.shape[:2])}, want ({n_z}, {B})")
         # (Z, B, ...) → image-major rows (B·Z, ...)
         fsm = FSMTables(*[t.transpose(0, 1).reshape((B * Z,) + tuple(t.shape[2:])) for t in fsm])
-        nc = torch.as_tensor(np.asarray(num_constraints).reshape(-1), device=dev)
-        nc = nc.expand(B) if nc.numel() == 1 else nc[:B]
+        nc = np.asarray(num_constraints).reshape(-1)
+        nc = torch.as_tensor(np.repeat(nc[:1], B) if nc.size < B else nc[:B], device=dev)
 
         prehead = selection == "prehead"
         ctx = make_decode_context(self.params, cfg, feats, sentiment=sentiment,

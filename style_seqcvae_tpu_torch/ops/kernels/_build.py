@@ -97,9 +97,15 @@ def build() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    # (x, emb, vals, idx, lse, R, V, E, k, is_bf16, stream)
-    lib.ssc_vocab_topk_lse.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-    lib.ssc_vocab_topk_lse.restype = i
+    # (x, emb, vals, idx, lse, R, V, E, k, stream)
+    lib.ssc_vocab_topk_lse_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.ssc_vocab_topk_lse_f32.restype = i
+    # (x, emb, vals, idx, lse, scratch, R, V, E, k, stream)
+    lib.ssc_vocab_topk_lse_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    lib.ssc_vocab_topk_lse_bf16.restype = i
+    # (R, V, E, k, out[5]): blocks, segments, stages, smem bytes, scratch bytes
+    lib.ssc_vocab_topk_lse_bf16_plan.argtypes = [i, i, i, i, p]
+    lib.ssc_vocab_topk_lse_bf16_plan.restype = i
     # (logits, vals, idx, lse, R, V, k, is_bf16, stream)
     lib.ssc_topk_lse.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.ssc_topk_lse.restype = i

@@ -2,16 +2,21 @@
 
 Counterpart of ``style_seqcvae_tpu/ops/pallas/vocab_topk_lse.py::
 matmul_top_k_with_lse``. On CUDA tensors :func:`matmul_top_k_with_lse`
-launches the hand-written kernel in ``csrc/vocab_topk_lse.cu``, which never
-writes the (R, V) logits to device memory; on CPU tensors it runs
+launches a hand-written kernel chosen by dtype: bf16 goes to the tensor-core
+kernel in ``csrc/vocab_topk_lse_sm90.cu`` (wgmma fed by TMA, E zero-padded to
+a multiple of 8 for TMA's 16-byte row stride), f32 to the CUDA-core kernel in
+``csrc/vocab_topk_lse.cu`` (exact f32 products). Neither writes the (R, V)
+logits to device memory. On CPU tensors it runs
 :func:`matmul_top_k_with_lse_plain`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from style_seqcvae_tpu_torch.ops.kernels.topk_lse import top_k_with_lse_plain
 
@@ -40,9 +45,34 @@ def _check(x: torch.Tensor, emb: torch.Tensor, k: int) -> None:
         raise ValueError(f"need 0 < k < 128 and k <= V, got k={k}, V={emb.shape[0]}")
 
 
+def pad_width(x: torch.Tensor, emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad E of x (R, E) and emb (V, E) up to a multiple of 8 (TMA
+    needs bf16 rows that are a multiple of 16 bytes). Zeros add nothing to a
+    dot product, so the head's logits are unchanged."""
+    pad = -x.shape[1] % 8
+    if pad == 0:
+        return x, emb
+    return F.pad(x, (0, pad)), F.pad(emb, (0, pad))
+
+
+def bf16_plan(R: int, V: int, E: int, k: int) -> Dict[str, int]:
+    """How the bf16 kernel splits (R, V, E) with k on the current CUDA
+    device (E already a multiple of 8): persistent blocks, row-tile segments
+    per block at most, pipeline stages, dynamic shared memory and scratch
+    bytes."""
+    from style_seqcvae_tpu_torch.ops.kernels import _build
+
+    lib = _build.library()
+    out = (ctypes.c_longlong * 5)()
+    _build.check(lib, lib.ssc_vocab_topk_lse_bf16_plan(R, V, E, k, out), "vocab_topk_lse plan")
+    return dict(zip(("blocks", "segments", "stages", "smem_bytes", "scratch_bytes"), out))
+
+
 def matmul_top_k_with_lse(x: torch.Tensor, emb: torch.Tensor, k: int
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Same contract as :func:`matmul_top_k_with_lse_plain`."""
+    """Same contract as :func:`matmul_top_k_with_lse_plain`. One call counts
+    one launch, although the bf16 path runs two CUDA kernels (the product
+    with its partial top-k, then the merge)."""
     global launches
     _check(x, emb, k)
     if x.device.type == "cpu":
@@ -62,9 +92,19 @@ def matmul_top_k_with_lse(x: torch.Tensor, emb: torch.Tensor, k: int
         return vals, idx, lse
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.ssc_vocab_topk_lse(x.data_ptr(), emb.data_ptr(), vals.data_ptr(),
-                                    idx.data_ptr(), lse.data_ptr(), R, V, E, k,
-                                    int(x.dtype == torch.bfloat16), stream)
+        if x.dtype == torch.float32:
+            rc = lib.ssc_vocab_topk_lse_f32(x.data_ptr(), emb.data_ptr(), vals.data_ptr(),
+                                            idx.data_ptr(), lse.data_ptr(), R, V, E, k, stream)
+        else:
+            x, emb = pad_width(x, emb)
+            E = x.shape[1]
+            # TMA reads from 16-byte aligned rows
+            x, emb = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, emb))
+            plan = bf16_plan(R, V, E, k)
+            scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=x.device)
+            rc = lib.ssc_vocab_topk_lse_bf16(x.data_ptr(), emb.data_ptr(), vals.data_ptr(),
+                                             idx.data_ptr(), lse.data_ptr(),
+                                             scratch.data_ptr(), R, V, E, k, stream)
     _build.check(lib, rc, "vocab_topk_lse")
     launches += 1
     return vals, idx, lse

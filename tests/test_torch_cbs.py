@@ -66,22 +66,26 @@ def _fsm(rng, n_constraints=3, token_zero=False):
     return f
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, batch=B):
     rng = np.random.RandomState(seed)
-    feats = rng.randn(B, NBOX, 12).astype(np.float32)
+    feats = rng.randn(batch, NBOX, 12).astype(np.float32)
     feats[1, -1] = 0.0                       # one padded box
-    sentiment = rng.choice([-1.0, 1.0], (B, 1)).astype(np.float32)
+    sentiment = rng.choice([-1.0, 1.0], (batch, 1)).astype(np.float32)
     tables = [[jcbs.fsm_to_tables(_fsm(rng, token_zero=(b == 0 and z == 0)))
-               for z in range(NZ)] for b in range(B)]
-    noise = rng.randn(NZ, T, B, S, BEAM, 4).astype(np.float32)
+               for z in range(NZ)] for b in range(batch)]
+    noise = rng.randn(NZ, T, batch, S, BEAM, 4).astype(np.float32)
     return feats, sentiment, tables, noise
 
 
-def _jax_decode(params, jcfg, feats, sentiment, stacked, noise, selection):
+def _jax_decode(params, jcfg, feats, sentiment, stacked, noise, selection, nc=None):
+    """``nc``: the (B,) constraint counts handed to the selection (3 each
+    by default)."""
     prehead = selection == "prehead"
+    B = feats.shape[0]
+    nc = jnp.full((B,), 3) if nc is None else jnp.asarray(nc)
 
     @jax.jit
-    def run(params, feats, sentiment, tables, noise):
+    def run(params, feats, sentiment, tables, noise, nc):
         ctx = jcap.make_decode_context(params, jcfg, feats, sentiment=sentiment)
         step = jcap.make_optimized_step_fn(params, jcfg, ctx, return_raw=not prehead,
                                            return_prehead=prehead)
@@ -96,13 +100,12 @@ def _jax_decode(params, jcfg, feats, sentiment, stacked, noise, selection):
                 prehead_step=prehead, noise=noise_z,
                 embedding=params["embedding"] if prehead else None,
                 fused_vocab_topk=(selection == "fused") or None)
-            return select_best_beam_simple_jax(seqs, lp, jnp.full((B,), 3),
-                                               jcfg.min_constraints_to_satisfy)
+            return select_best_beam_simple_jax(seqs, lp, nc, jcfg.min_constraints_to_satisfy)
 
         return jax.vmap(one_z)(noise, tables)
 
     best, lp = run(params, jnp.asarray(feats), jnp.asarray(sentiment), stacked,
-                   jnp.asarray(noise))
+                   jnp.asarray(noise), nc)
     return np.asarray(best), np.asarray(lp)
 
 
@@ -169,3 +172,49 @@ def test_prehead_and_fused_agree_on_all_beams():
     assert reach.any()
     np.testing.assert_array_equal(sa.numpy()[reach], sb.numpy()[reach])
     np.testing.assert_allclose(lb.numpy()[reach], la.numpy()[reach], atol=SCORE_ATOL)
+
+
+def _jax_harness_inputs(params, jcfg, feats, sentiment, tables, num_constraints):
+    """The padded tables and (B,) constraint counts that the JAX harness's
+    ``decode_cbs`` derives from its arguments before it decodes."""
+    seen = {}
+
+    def capture(params, feats, sentiment, oae, stacked, nc, key, **kw):
+        seen.update(stacked=stacked, nc=np.asarray(nc))
+        return jnp.zeros(()), jnp.zeros(())
+
+    h = jharness.DecodeHarness(params, jcfg)
+    h._jit_cbs = capture
+    h.decode_cbs(feats, sentiment, None, tables, num_constraints, jax.random.PRNGKey(0), NZ)
+    return seen["stacked"], seen["nc"]
+
+
+def _port_tables(tables):
+    return [[tcbs.FSMTables(*[np.asarray(x) for x in t]) for t in ts] for ts in tables]
+
+
+@pytest.mark.parametrize("case", ["short_num_constraints", "per_z_tables"])
+def test_decode_cbs_interface_matches_jax(case):
+    """The two argument forms the JAX harness takes besides a full per-image
+    batch: ``num_constraints`` shorter than the batch (its first entry then
+    holds for every image), and one image's per-z ``List[FSMTables]``."""
+    jcfg, tcfg = _cfg()
+    params = jcap.init_captioner(jax.random.PRNGKey(3), jcfg)
+    if case == "short_num_constraints":
+        feats, sentiment, tables, noise = _inputs(4, batch=3)
+        j_tables, t_tables, nc = tables, _port_tables(tables), [2, 1]
+    else:
+        feats, sentiment, tables, noise = _inputs(5)
+        feats, sentiment, noise = feats[:1], sentiment[:1], noise[:, :, :1]
+        j_tables, t_tables, nc = tables[0], _port_tables(tables)[0], 3
+    stacked, j_nc = _jax_harness_inputs(params, jcfg, feats, sentiment, j_tables, nc)
+    ref_best, ref_lp = _jax_decode(params, jcfg, feats, sentiment, stacked, noise,
+                                   "prehead", nc=j_nc)
+
+    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, params), device="cpu")
+    best, lp = DecodeHarness(tparams, tcfg, device="cpu").decode_cbs(
+        feats, sentiment, None, t_tables, nc, noise, NZ, selection="prehead")
+    assert best.shape == ref_best.shape == (NZ, feats.shape[0], T)
+    np.testing.assert_array_equal(best.numpy(), ref_best)
+    np.testing.assert_allclose(lp.numpy(), ref_lp, atol=SCORE_ATOL, rtol=0)
+    assert np.isfinite(ref_lp).all()

@@ -55,6 +55,42 @@ def test_vocab_topk_lse_kernel(dev, dtype, R, V, E, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R,V,E,k", [
+    (1, 10500, 600, 10), (300, 10500, 600, 10), (12801, 10500, 600, 10),   # ragged R
+    (300, 10, 600, 10), (300, 257, 600, 10),                               # ragged V
+    (300, 10500, 8, 10), (300, 10500, 300, 10),                            # E: 8, 300 (padded)
+    (300, 10500, 600, 127),
+])
+def test_vocab_topk_lse_bf16_kernel(dev, R, V, E, k):
+    """The bf16 tensor-core kernel. Columns 1, V // 2 and V - 1 share one
+    embedding row, scaled up so that it often tops a row: exact ties across
+    vocabulary tiles and, at these R, across the blocks' runs of tiles."""
+    gen = torch.Generator(device=dev).manual_seed(R + V + E + k)
+    x = torch.tanh(torch.randn(R, E, generator=gen, device=dev)).to(torch.bfloat16)
+    emb = torch.randn(V, E, generator=gen, device=dev).to(torch.bfloat16)
+    tied = [1, V // 2, V - 1]
+    emb[tied] = 3 * emb[1]
+    before = vocab_topk_lse.launches
+    got = vocab_topk_lse.matmul_top_k_with_lse(x, emb, k)
+    want = vocab_topk_lse.matmul_top_k_with_lse_plain(x, emb, k)
+    torch.cuda.synchronize()
+    assert vocab_topk_lse.launches == before + 1
+    torch.testing.assert_close(got[0], want[0], atol=A_TOL, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=LSE_TOL, rtol=0)
+    swapped = got[1] != want[1]
+    assert swapped.float().mean().item() < 1e-3
+    assert all(len(set(row)) == k for row in got[1].tolist())     # distinct indices
+    assert bool(((got[1] >= 0) & (got[1] < V)).all())
+    # equal values in selection order: lower index first
+    same = got[0][:, 1:] == got[0][:, :-1]
+    assert bool((got[1][:, 1:] > got[1][:, :-1])[same].all())
+    top_tied = torch.isin(want[1][:, 0], torch.tensor(tied, device=dev))
+    if R > 1 and V > k:
+        assert top_tied.any()
+    assert torch.equal(got[1][top_tied, :2], want[1][top_tied, :2])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,V,k", [(300, 10500, 10), (7, 130, 127)])
 def test_topk_lse_kernel(dev, dtype, R, V, k):

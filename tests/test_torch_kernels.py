@@ -137,3 +137,23 @@ def test_cpu_tensors_never_launch():
     topk_lse.top_k_with_lse(torch.randn(4, 32), 3)
     vocab_topk_lse.matmul_top_k_with_lse(torch.randn(4, 8), torch.randn(32, 8), 3)
     assert (topk_lse.launches, vocab_topk_lse.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vocab_topk_lse_width_padding_is_exact(dtype):
+    """The bf16 CUDA path zero-pads E to a multiple of 8 (TMA's 16-byte
+    rows): 300 -> 304 leaves the plain version's results bit for bit."""
+    rng = np.random.RandomState(6)
+    x = _t(np.tanh(rng.randn(37, 300)), dtype)
+    emb = _t(rng.randn(530, 300), dtype)
+    xp, ep = vocab_topk_lse.pad_width(x, emb)
+    assert xp.shape == (37, 304) and ep.shape == (530, 304) and xp.dtype == dtype
+    assert not xp[:, 300:].any() and not ep[:, 300:].any()
+    assert torch.equal(xp[:, :300], x) and torch.equal(ep[:, :300], emb)
+    for a, b in zip(vocab_topk_lse.matmul_top_k_with_lse_plain(x, emb, 10),
+                    vocab_topk_lse.matmul_top_k_with_lse_plain(xp, ep, 10)):
+        assert torch.equal(a, b)
+    assert vocab_topk_lse.pad_width(xp, ep)[0] is xp                # already a multiple
+    # widths that padding would make equal are still refused
+    with pytest.raises(ValueError):
+        vocab_topk_lse.matmul_top_k_with_lse(x, emb[:, :299], 10)
