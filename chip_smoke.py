@@ -10,10 +10,12 @@ one JSON line per phase as it goes:
 1. ``build``: the CUDA kernels built from ``style_seqcvae_tpu_torch/csrc``,
    then kernel A's registers and spills as ``-Xptxas -v`` reported them;
 2. ``kernel``: each kernel against its plain PyTorch version at the flagship
-   decode shapes, in bf16 and f32, with its time, the plain version's time
-   and the least time the card could take (fails above the stated
-   tolerances); kernel A's bf16 path also at a ragged shape (R = 1,000,
-   E = 300, which the wrapper pads to 304);
+   decode shapes, in bf16 and f32, with its time (the median of 5 timings of
+   10 launches, and their range), the plain version's time and the least
+   time the card could take (fails above the stated tolerances); kernels A
+   and B in bf16 also at ragged shapes (A: R = 1,000, E = 300, which the
+   wrapper pads to 304; B: R = 1,000, V = 10,501, whose odd rows start off
+   16-byte boundaries);
 3. ``agree``: a small f32 decode through the kernels on the GPU against the
    same decode through the plain versions on the CPU;
 4. ``decode``: the full-width Style-SeqCVAE CBS decode (BASELINE.json config
@@ -24,7 +26,7 @@ one JSON line per phase as it goes:
 5. ``kernel`` rows for the detector's kernels at the full-width shapes of
    BASELINE.json config 5: RoIAlign on a (16, 38, 58, 1024) C4 map with 4,800
    RoIs in f32 and bf16, and NMS at the RPN's 16 x 6,000 boxes and the
-   per-class 1,280 x 300, each against its plain version;
+   per-class 1,280 x 300, each against its plain version and timed the same way;
 6. ``detect``: the full-width Faster R-CNN ResNet-101 (81 classes, 98
    attributes, 12 anchors, 16 canvases of 608 x 928) through
    ``extract_device_features``, with RoIAlign's and NMS's launch counts;
@@ -163,6 +165,13 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_ms_range(fn, reps: int = 10, samples: int = 5):
+    """Median and [min, max] of ``samples`` timings by :func:`time_ms`, each
+    the mean of ``reps`` launches, after one warm-up call."""
+    ms = sorted(time_ms(fn, reps, warmup=1 if i == 0 else 0) for i in range(samples))
+    return ms[samples // 2], [ms[0], ms[-1]]
+
+
 def bound(n_bytes: float, n_ops: float, peak: float) -> dict:
     """The least time the card could take: bytes over HBM's rate or
     operations over the type's peak, whichever is longer."""
@@ -232,11 +241,12 @@ def kernel_row(name: str, c: dict, dtype: torch.dtype, shape: dict) -> dict:
     vals_err = (got[0] - want[0]).abs().max().item()
     lse_err = (got[2] - want[2]).abs().max().item()
     agree = (got[1] == want[1]).float().mean().item()
-    kernel_ms = time_ms(c["kernel"], c["kernel_reps"])
+    kernel_ms, kernel_range = time_ms_range(c["kernel"])
     plain_ms = time_ms(c["plain"], c["plain_reps"])
     row = {"phase": "kernel", "name": name, "dtype": str(dtype).split(".")[-1], **shape,
            "max_abs_err_vals": vals_err, "max_abs_err_lse": lse_err,
-           "idx_agree": agree, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "idx_agree": agree, "kernel_ms": kernel_ms, "kernel_ms_range": kernel_range,
+           "plain_ms": plain_ms,
            # no single PyTorch call computes top-k with logsumexp
            "library_ms": None,
            **bound(c["bytes"], c["ops"], c["peak"]),
@@ -257,8 +267,16 @@ def vocab_case(x: torch.Tensor, emb: torch.Tensor, k: int) -> dict:
     return dict(kernel=lambda: vocab_topk_lse.matmul_top_k_with_lse(x, emb, k),
                 plain=lambda: vocab_topk_lse.matmul_top_k_with_lse_plain(x, emb, k),
                 bytes=(R * E + V * E) * size + R * k * 8 + R * 4,
-                ops=2 * R * V * E, peak=PEAK_OPS[x.dtype],
-                kernel_reps=5, plain_reps=2, extra=extra)
+                ops=2 * R * V * E, peak=PEAK_OPS[x.dtype], plain_reps=2, extra=extra)
+
+
+def topk_case(logits: torch.Tensor, k: int) -> dict:
+    R, V = logits.shape
+    return dict(kernel=lambda: topk_lse.top_k_with_lse(logits, k),
+                plain=lambda: topk_lse.top_k_with_lse_plain(logits, k),
+                bytes=R * V * logits.element_size() + R * k * 8 + R * 4,
+                # max, exp, add and one comparison per element, f32 on CUDA cores
+                ops=4 * R * V, peak=PEAK_OPS[torch.float32], plain_reps=2)
 
 
 def phase_kernels(k: int, dev: torch.device) -> dict:
@@ -269,20 +287,10 @@ def phase_kernels(k: int, dev: torch.device) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        size = torch.tensor([], dtype=dtype).element_size()
         x = torch.tanh(torch.randn(R, E, generator=gen, device=dev)).to(dtype)
         emb = torch.randn(V, E, generator=gen, device=dev).to(dtype)
         logits = torch.matmul(x, emb.T)                # the fused path's (R, V) logits
-        cases = {
-            "vocab_topk_lse": vocab_case(x, emb, k),
-            "topk_lse": dict(
-                kernel=lambda: topk_lse.top_k_with_lse(logits, k),
-                plain=lambda: topk_lse.top_k_with_lse_plain(logits, k),
-                bytes=R * V * size + R * k * 8 + R * 4,
-                # max, exp, add and one comparison per element, f32 on CUDA cores
-                ops=4 * R * V, peak=PEAK_OPS[torch.float32],
-                kernel_reps=10, plain_reps=2),
-        }
+        cases = {"vocab_topk_lse": vocab_case(x, emb, k), "topk_lse": topk_case(logits, k)}
         for name, c in cases.items():
             row = kernel_row(name, c, dtype, {"rows": R, "vocab": V, "k": k, "width":
                                               E if name == "vocab_topk_lse" else None})
@@ -299,6 +307,11 @@ def phase_kernels(k: int, dev: torch.device) -> dict:
     emb = torch.randn(V, e_rag, generator=gen, device=dev).to(torch.bfloat16)
     kernel_row("vocab_topk_lse", vocab_case(x, emb, k), torch.bfloat16,
                {"rows": r_rag, "vocab": V, "k": k, "width": e_rag})
+    # odd V: every other bf16 row starts off a 16-byte boundary
+    v_rag = V + 1
+    logits = (3 * torch.randn(r_rag, v_rag, generator=gen, device=dev)).to(torch.bfloat16)
+    kernel_row("topk_lse", topk_case(logits, k), torch.bfloat16,
+               {"rows": r_rag, "vocab": v_rag, "k": k, "width": None})
     return out
 
 
@@ -435,10 +448,11 @@ def phase_detector_kernels(dev: torch.device) -> dict:
         atol, rtol = ROI_TOL[dtype]
         within = bool((err <= atol + rtol * want.float().abs()).all())
         n_out = ROIS * P * P * C4[-1]
+        kernel_ms, kernel_range = time_ms_range(lambda: roi_align.roi_align(feats, rois, **kw))
         row = {"phase": "kernel", "name": "roi_align", "dtype": str(dtype).split(".")[-1],
                "features": list(C4), "rois": ROIS, "max_abs_err": err.max().item(),
                "tolerance": {"atol": atol, "rtol": rtol}, "within_tolerance": within,
-               "kernel_ms": time_ms(lambda: roi_align.roi_align(feats, rois, **kw), 10),
+               "kernel_ms": kernel_ms, "kernel_ms_range": kernel_range,
                "plain_ms": time_ms(lambda: roi_align.roi_align_plain(feats, rois, **kw), 2),
                # no torchvision on the card's machine: no library RoIAlign
                "library_ms": None,
@@ -469,6 +483,8 @@ def phase_detector_kernels(dev: torch.device) -> dict:
         upper_words = G * int(span.sum())
         kept_words = int((torch.gather(got[1], 1, perm).long() * span).sum())
         out_len = min(max_out, N) if max_out else N
+        kernel_ms, kernel_range = time_ms_range(
+            lambda: nms.nms(boxes, scores, thr, max_out=max_out, presorted=presorted))
         out_bytes = G * out_len * 4 + G * N
         order_bytes = 0 if presorted else G * N * 4
         iou_ops = NMS_OPS_PER_PAIR * G * N * (N - 1) / 2
@@ -477,8 +493,7 @@ def phase_detector_kernels(dev: torch.device) -> dict:
                "kept_per_group": got[1].sum(dim=1).float().mean().item(),
                "mismatches": mismatches,
                "max_abs_err": float(max(idx_diff.max().item(), mask_diff.max().item())),
-               "kernel_ms": time_ms(lambda: nms.nms(boxes, scores, thr, max_out=max_out,
-                                                    presorted=presorted), 10),
+               "kernel_ms": kernel_ms, "kernel_ms_range": kernel_range,
                "plain_ms": time_ms(lambda: nms.nms_plain(boxes, scores, thr, max_out=max_out,
                                                          presorted=presorted), 1, warmup=0),
                # no torchvision on the card's machine: no library NMS
@@ -703,6 +718,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err, "ms": row["kernel_ms"],
+                        "ms_range": row["kernel_ms_range"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     emit({"kernels": kernels})

@@ -7,120 +7,244 @@
 // is the mean of S x S bilinear samples, computed in f32, with the boundary
 // rules of the classic CUDA RoIAlign: a sample outside [-1, H] x [-1, W] is
 // empty, negative coordinates clamp to 0, the low corner clamps to H-1 / W-1.
-//
-// Design: one block per (RoI, slice of 256 channels). The block reads its
-// RoI's batch index and box itself, computes bin_h and bin_w once, and puts
-// the corner offsets and bilinear weights of all P*P*S*S samples into
-// shared memory; then each thread owns one channel and walks the bins, so
-// every corner read is a coalesced read of an NHWC row and every output
-// bin a coalesced write. The coordinate arithmetic is the plain version's
-// f32 expressions, rounded step by step (__fmul_rn / __fadd_rn keep nvcc
-// from contracting them into FMAs), so both place every sample alike.
+// A batch index outside [0, B) is clamped into it.
 //
 // Bound on an H100 SXM: memory. At full width (features (16, 38, 58, 1024),
 // R = 4,800) the function must read the 144 MB f32 map once and write the
 // 963 MB pooled output, about 0.33 ms at 3.35 TB/s (half in bf16); its
-// ~8 GFLOP of f32 arithmetic are well below that. The TPU kernel copied each
-// image's map, split by channels, into VMEM; there is no counterpart here:
-// an image's 9 MB map stays in the 50 MB L2 while the blocks of its RoIs,
-// which come in batch order, read it, so the repeated corner reads are L2
-// hits and device memory sees the map about once.
+// ~8 GFLOP of f32 arithmetic are well below that.
+//
+// Design: one block per RoI covers all its channels, each thread a vector
+// of 16 bytes (4 f32 or 8 bf16 channels: 256 threads in f32 and 128 in bf16
+// at C = 1,024), read and written with 16-byte accesses. The bilinear
+// weights are separable: a sample's corner weight is (its row weight) x
+// (its column weight), and emptiness is a row or a column property. So the
+// block first builds, once per RoI, two small tables: for each output row
+// ph the feature rows its S sample rows touch, with their summed weights,
+// and the same for each output column pw. Samples that share a feature row
+// or column (a RoI under ~14 feature pixels wide has them 1 px apart or
+// less) share one entry, so a bin reads each feature pixel it touches once:
+// at most 2S x 2S pixels, 9 rather than 16 at the usual S = 2, and a 12-px
+// RoI reads ~440 pixels for its 49 bins instead of 784. Four bins of an
+// output row are computed together, one 16-byte load in flight for each.
+// The means are written with streaming stores (__stcs), so that the 963 MB
+// output does not push out of L2 the 9 MB per-image map that the image's
+// other RoIs read. Nothing stages the footprint in shared memory, so a RoI
+// of any size, up to the whole map, takes the same path. The coordinate
+// arithmetic is the plain version's f32 expressions, rounded step by step
+// (__fmul_rn / __fadd_rn keep nvcc from contracting them into FMAs), so both
+// place every sample and corner alike; the sums run in another order (f32:
+// a few 1e-7 apart; bf16: the mean may round to the neighbouring bf16
+// value). When C is not a multiple of the vector, or a pointer is not
+// 16-byte aligned, each thread reads and writes its channels one by one.
+// Measured on an NVIDIA H100 80GB HBM3 (700.00 W) at full width: 0.875 ms in
+// f32 and 0.642 ms in bf16 (chip_smoke.py, medians of 5 timings of 10
+// launches); the old design (a block per (RoI, 256 channels), one channel
+// per thread, 16 scalar corner reads per bin) took 2.191 and 2.379 ms.
+// Reading every sample's own four corners instead costs 1.50 ms in f32
+// (ops/kernels/ablate_topk_roi.py).
+#include <cstdint>
+
 #include "ssc_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSamples = 1024;
+constexpr int kMaxThreads = 256;
+constexpr int kGroup = 4;     // bins of an output row computed together
+constexpr int kMaxTaps = 64;  // P * 2S; the wrapper keeps P * S <= 32
 
+// A 16-byte piece of the map, and one of the output, which is written once
+// and read by the next layer much later: streamed past the caches, evict-first
+// (ops/kernels/ablate_topk_roi.py times plain stores and other L2 policies)
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ void store16(void* p, uint4 v) {
+  __stcs(reinterpret_cast<uint4*>(p), v);
+}
+
+// kN f32 values as the 16 bytes of T that hold them
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint4 pack16(const float (&x)[ssc::Vec16<T>::kN]);
+template <>
+__device__ __forceinline__ uint4 pack16<float>(const float (&x)[4]) {
+  return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]), __float_as_uint(x[2]),
+                    __float_as_uint(x[3]));
+}
+template <>
+__device__ __forceinline__ uint4 pack16<__nv_bfloat16>(const float (&x)[8]) {
+  unsigned w[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    // round to nearest even, as torch's .to(bfloat16)
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * t], x[2 * t + 1]);
+    w[t] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// 16 bytes of channels, loaded and stored as one vector (kVec) or one by one
+// (the first `valid` of them)
+template <typename T, bool kVec>
+__device__ __forceinline__ uint4 load_vec(const T* p, int valid) {
+  if (kVec) return load16(p);
+  uint4 q{0u, 0u, 0u, 0u};
+  T* e = reinterpret_cast<T*>(&q);
+  for (int j = 0; j < valid; ++j) e[j] = p[j];
+  return q;
+}
+
+template <typename T, bool kVec>
+__device__ __forceinline__ void store_vec(T* p, const float (&x)[ssc::Vec16<T>::kN],
+                                          int valid) {
+  const uint4 q = pack16<T>(x);
+  if (kVec) {
+    store16(p, q);
+  } else {
+    const T* e = reinterpret_cast<const T*>(&q);
+    for (int j = 0; j < valid; ++j) p[j] = e[j];
+  }
+}
+
+// The feature rows (or columns) that the S samples of output row (column) p
+// touch, with their summed bilinear weights; returns how many. lo is the
+// RoI's first coordinate on the map, bin its bin size, size the map's H (W).
+__device__ int sample_taps(float lo, float bin, int p, int S, int size, int* pos, float* w) {
+  int n = 0;
+  auto add = [&](int at, float weight) {
+    if (weight == 0.0f) return;  // the sample lies on the other corner's line
+    for (int t = 0; t < n; ++t)
+      if (pos[t] == at) { w[t] += weight; return; }
+    pos[n] = at;
+    w[n++] = weight;
+  };
+  const float fs = static_cast<float>(S);
+  for (int i = 0; i < S; ++i) {
+    const float o = __fdiv_rn(static_cast<float>(i) + 0.5f, fs);
+    float c = __fadd_rn(lo, __fmul_rn(__fadd_rn(static_cast<float>(p), o), bin));
+    if (c < -1.0f || c > static_cast<float>(size)) continue;  // empty
+    c = fmaxf(c, 0.0f);
+    const int c0 = min(static_cast<int>(floorf(c)), size - 1);
+    const int c1 = min(c0 + 1, size - 1);
+    const float l = fminf(fmaxf(__fsub_rn(c, static_cast<float>(c0)), 0.0f), 1.0f);
+    add(c0, __fsub_rn(1.0f, l));
+    add(c1, l);
+  }
+  return n;
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kMaxThreads)
 roi_align_kernel(const T* __restrict__ feat, const float* __restrict__ rois,
                  T* __restrict__ out, int B, int H, int W, int C, float spatial_scale,
-                 int pooled, int sampling) {
-  __shared__ int s_off[kMaxSamples][4];
-  __shared__ float s_w[kMaxSamples][4];
+                 int P, int S) {
+  using Vec = ssc::Vec16<T>;
+  constexpr int N = Vec::kN;
+  // taps of output row ph: row_pos / row_w [ph * 2S, ph * 2S + row_n[ph])
+  __shared__ int row_pos[kMaxTaps], col_pos[kMaxTaps], row_n[kMaxTaps / 2],
+      col_n[kMaxTaps / 2];
+  __shared__ float row_w[kMaxTaps], col_w[kMaxTaps];
 
   const int r = blockIdx.x;
-  const int c = blockIdx.y * kThreads + threadIdx.x;
   const float* roi = rois + static_cast<size_t>(r) * 5;
   const int b = min(max(static_cast<int>(roi[0]), 0), B - 1);
-  const float x1 = __fmul_rn(roi[1], spatial_scale);
-  const float y1 = __fmul_rn(roi[2], spatial_scale);
-  const float x2 = __fmul_rn(roi[3], spatial_scale);
-  const float y2 = __fmul_rn(roi[4], spatial_scale);
-  const float bin_w = __fdiv_rn(fmaxf(__fsub_rn(x2, x1), 1.0f), static_cast<float>(pooled));
-  const float bin_h = __fdiv_rn(fmaxf(__fsub_rn(y2, y1), 1.0f), static_cast<float>(pooled));
-
-  const int S2 = sampling * sampling;
-  const int n_samples = pooled * pooled * S2;
-  // sample s = ((ph * P + pw) * S + iy) * S + ix
-  for (int s = threadIdx.x; s < n_samples; s += kThreads) {
-    const int ix = s % sampling;
-    const int iy = (s / sampling) % sampling;
-    const int pw = (s / S2) % pooled;
-    const int ph = s / (S2 * pooled);
-    const float fs = static_cast<float>(sampling);
-    const float oy = __fdiv_rn(static_cast<float>(iy) + 0.5f, fs);
-    const float ox = __fdiv_rn(static_cast<float>(ix) + 0.5f, fs);
-    float y = __fadd_rn(y1, __fmul_rn(__fadd_rn(static_cast<float>(ph), oy), bin_h));
-    float x = __fadd_rn(x1, __fmul_rn(__fadd_rn(static_cast<float>(pw), ox), bin_w));
-    const bool empty = y < -1.0f || y > static_cast<float>(H) || x < -1.0f ||
-                       x > static_cast<float>(W);
-    y = fmaxf(y, 0.0f);
-    x = fmaxf(x, 0.0f);
-    const int y0 = min(static_cast<int>(floorf(y)), H - 1);
-    const int x0 = min(static_cast<int>(floorf(x)), W - 1);
-    const int y1i = min(y0 + 1, H - 1);
-    const int x1i = min(x0 + 1, W - 1);
-    const float ly = fminf(fmaxf(__fsub_rn(y, static_cast<float>(y0)), 0.0f), 1.0f);
-    const float lx = fminf(fmaxf(__fsub_rn(x, static_cast<float>(x0)), 0.0f), 1.0f);
-    const float hy = __fsub_rn(1.0f, ly), hx = __fsub_rn(1.0f, lx);
-    s_off[s][0] = y0 * W + x0;
-    s_off[s][1] = y0 * W + x1i;
-    s_off[s][2] = y1i * W + x0;
-    s_off[s][3] = y1i * W + x1i;
-    s_w[s][0] = empty ? 0.0f : __fmul_rn(hy, hx);
-    s_w[s][1] = empty ? 0.0f : __fmul_rn(hy, lx);
-    s_w[s][2] = empty ? 0.0f : __fmul_rn(ly, hx);
-    s_w[s][3] = empty ? 0.0f : __fmul_rn(ly, lx);
+  const int S2 = 2 * S;
+  for (int t = threadIdx.x; t < 2 * P; t += blockDim.x) {
+    const bool is_row = t < P;
+    const int p = is_row ? t : t - P;
+    const float lo = __fmul_rn(roi[is_row ? 2 : 1], spatial_scale);
+    const float hi = __fmul_rn(roi[is_row ? 4 : 3], spatial_scale);
+    const float bin = __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1.0f), static_cast<float>(P));
+    int* pos = (is_row ? row_pos : col_pos) + p * S2;
+    float* w = (is_row ? row_w : col_w) + p * S2;
+    (is_row ? row_n : col_n)[p] = sample_taps(lo, bin, p, S, is_row ? H : W, pos, w);
   }
   __syncthreads();
-  if (c >= C) return;
+  int col_taps = 0;  // the most column taps of any output column
+  for (int p = 0; p < P; ++p) col_taps = max(col_taps, col_n[p]);
 
-  const T* img = feat + static_cast<size_t>(b) * H * W * C + c;
-  T* dst = out + static_cast<size_t>(r) * pooled * pooled * C + c;
-  const float denom = static_cast<float>(S2);
-  for (int bin = 0; bin < pooled * pooled; ++bin) {
-    float acc = 0.0f;
-    for (int k = 0; k < S2; ++k) {
-      const int s = bin * S2 + k;
-      float v = 0.0f;
+  // the mean of S * S samples: a product where 1 / S^2 is exact
+  const float denom = static_cast<float>(S * S);
+  const bool exact_inverse = ((S * S) & (S * S - 1)) == 0;
+  const float inv = 1.0f / denom;
+  for (int cv = threadIdx.x; cv * N < C; cv += blockDim.x) {
+    const int c0 = cv * N, valid = min(N, C - c0);
+    const T* img = feat + static_cast<size_t>(b) * H * W * C + c0;
+    T* dst = out + static_cast<size_t>(r) * P * P * C + c0;
+    for (int ph = 0; ph < P; ++ph) {
+      for (int pw0 = 0; pw0 < P; pw0 += kGroup) {
+        float acc[kGroup][N];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        v += s_w[s][q] * ssc::to_float(img[static_cast<size_t>(s_off[s][q]) * C]);
-      acc += v;
+        for (int g = 0; g < kGroup; ++g)
+#pragma unroll
+          for (int e = 0; e < N; ++e) acc[g][e] = 0.0f;
+        for (int a = 0; a < row_n[ph]; ++a) {
+          const T* line = img + static_cast<size_t>(row_pos[ph * S2 + a]) * W * C;
+          const float wy = row_w[ph * S2 + a];
+          for (int t = 0; t < col_taps; ++t) {
+            uint4 q[kGroup];
+#pragma unroll
+            for (int g = 0; g < kGroup; ++g) {
+              const int pw = pw0 + g;
+              if (pw < P && t < col_n[pw])
+                q[g] = load_vec<T, kVec>(line + static_cast<size_t>(col_pos[pw * S2 + t]) * C,
+                                         valid);
+            }
+#pragma unroll
+            for (int g = 0; g < kGroup; ++g) {
+              const int pw = pw0 + g;
+              if (pw < P && t < col_n[pw]) {
+                const float w = wy * col_w[pw * S2 + t];
+#pragma unroll
+                for (int e = 0; e < N; ++e) acc[g][e] = fmaf(w, Vec::get(q[g], e), acc[g][e]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          const int pw = pw0 + g;
+          if (pw < P) {
+#pragma unroll
+            for (int e = 0; e < N; ++e)
+              acc[g][e] = exact_inverse ? acc[g][e] * inv : __fdiv_rn(acc[g][e], denom);
+            store_vec<T, kVec>(dst + static_cast<size_t>(ph * P + pw) * C, acc[g], valid);
+          }
+        }
+      }
     }
-    dst[static_cast<size_t>(bin) * C] = ssc::from_float<T>(__fdiv_rn(acc, denom));
   }
+}
+
+template <typename T>
+void launch(const void* feat, const void* rois, void* out, int B, int H, int W, int C, int R,
+            float spatial_scale, int P, int S, cudaStream_t st) {
+  constexpr int N = ssc::Vec16<T>::kN;
+  const uintptr_t ends = reinterpret_cast<uintptr_t>(feat) | reinterpret_cast<uintptr_t>(out);
+  const bool vec = C % N == 0 && (ends & 15) == 0;
+  const int vectors = (C + N - 1) / N;
+  const int threads = min(kMaxThreads, (vectors + 31) / 32 * 32);
+  if (vec)
+    roi_align_kernel<T, true><<<R, threads, 0, st>>>(
+        static_cast<const T*>(feat), static_cast<const float*>(rois), static_cast<T*>(out), B,
+        H, W, C, spatial_scale, P, S);
+  else
+    roi_align_kernel<T, false><<<R, threads, 0, st>>>(
+        static_cast<const T*>(feat), static_cast<const float*>(rois), static_cast<T*>(out), B,
+        H, W, C, spatial_scale, P, S);
 }
 
 }  // namespace
 
-// features (B, H, W, C), rois (R, 5) -> out (R, P, P, C). Returns
-// cudaGetLastError().
+// features (B, H, W, C), rois (R, 5) -> out (R, P, P, C). Needs P * S <= 32.
+// Returns cudaGetLastError().
 extern "C" int ssc_roi_align(const void* feat, const void* rois, void* out, int B, int H,
                              int W, int C, int R, float spatial_scale, int pooled,
                              int sampling, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(R, (C + kThreads - 1) / kThreads);
-  if (is_bf16) {
-    roi_align_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(feat), static_cast<const float*>(rois),
-        static_cast<__nv_bfloat16*>(out), B, H, W, C, spatial_scale, pooled, sampling);
-  } else {
-    roi_align_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(feat), static_cast<const float*>(rois),
-        static_cast<float*>(out), B, H, W, C, spatial_scale, pooled, sampling);
-  }
+  if (is_bf16)
+    launch<__nv_bfloat16>(feat, rois, out, B, H, W, C, R, spatial_scale, pooled, sampling, st);
+  else
+    launch<float>(feat, rois, out, B, H, W, C, R, spatial_scale, pooled, sampling, st);
   return static_cast<int>(cudaGetLastError());
 }

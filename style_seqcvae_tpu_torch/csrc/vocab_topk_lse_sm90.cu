@@ -76,7 +76,8 @@ constexpr int kConsumers = 256;                   // two warpgroups
 constexpr int kThreads = kConsumers + 32;         // and one producer warp
 constexpr int kMergeWarps = 8;
 constexpr int kSeed = 3;  // per-thread largest values that seed a new list's threshold
-constexpr float kLog2e = 1.4426950408889634f;
+using ssc::exp2_approx;
+using ssc::kLog2e;
 
 // ---- PTX wrappers ----------------------------------------------------------
 
@@ -135,14 +136,6 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x by the special function unit (relative error ~2^-22; subnormal
-// results flush to 0, far below what a logsumexp term can move)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Entry (v, i) at position p is worse than (w, j) at position r: it comes
@@ -283,12 +276,8 @@ vocab_topk_lse_sm90_kernel(const __grid_constant__ CUtensorMap map_x,
         float m = run_m[h], s = run_s[h];
 #pragma unroll
         for (int o = 1; o < 4; o <<= 1) {
-          const float om = __shfl_xor_sync(ssc::kFullMask, m, o);
-          const float os = __shfl_xor_sync(ssc::kFullMask, s, o);
-          const float mn = fmaxf(m, om);
-          if (mn != -INFINITY)
-            s = s * exp2_approx((m - mn) * kLog2e) + os * exp2_approx((om - mn) * kLog2e);
-          m = mn;
+          ssc::lse_merge(m, s, __shfl_xor_sync(ssc::kFullMask, m, o),
+                         __shfl_xor_sync(ssc::kFullMask, s, o));
         }
         const size_t slot = (static_cast<size_t>(b) * max_segments + seg) * kRowsTile + rows[h];
         if (q == 0) { part_m[slot] = m; part_s[slot] = s; }

@@ -15,7 +15,7 @@ from style_seqcvae_tpu_torch.ops.roi_align import roi_align as roi_align_plain
 # launches of the CUDA kernel in this process (the plain version not counted)
 launches = 0
 
-_MAX_SAMPLES = 1024     # the kernel's shared-memory sample table
+_MAX_TAPS = 32          # pooled · sampling: the kernel's per-RoI tap tables
 
 
 def _check(features: torch.Tensor, rois: torch.Tensor, pooled_height: int,
@@ -31,8 +31,8 @@ def _check(features: torch.Tensor, rois: torch.Tensor, pooled_height: int,
     if pooled_height != pooled_width:
         raise ValueError("square pooling only")
     if pooled_height < 1 or sampling_ratio < 1 or \
-            pooled_height ** 2 * sampling_ratio ** 2 > _MAX_SAMPLES:
-        raise ValueError(f"need 1 <= pooled² · sampling² <= {_MAX_SAMPLES}, got "
+            pooled_height * sampling_ratio > _MAX_TAPS:
+        raise ValueError(f"need 1 <= pooled · sampling <= {_MAX_TAPS}, got "
                          f"pooled {pooled_height}, sampling {sampling_ratio}")
 
 

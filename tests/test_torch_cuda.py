@@ -16,7 +16,8 @@ from style_seqcvae_tpu_torch.ops.kernels import nms, roi_align, topk_lse, vocab_
 # matmul: values and lse ~1e-5 apart at these widths, a few 1e-4 at worst
 # over thousands of rows; an index may swap only between two logits that
 # close. Kernel B reads the same f32 values as the
-# plain version and selects in the same order: values and indices are equal.
+# plain version and selects in the same order: values and indices are equal;
+# its logsumexp sums the row in another order.
 A_TOL = 1e-3
 LSE_TOL = 1e-3
 # Kernel C sums the 16 weighted corner reads of a bin in another order than
@@ -110,6 +111,63 @@ def test_topk_lse_kernel(dev, dtype, R, V, k):
     assert got[1][0].tolist() == list(range(k)) and torch.isneginf(got[2][0])
 
 
+def _ascending(R, V, dtype, dev):
+    """Rows that rise strictly along V, so every element passes the kernel's
+    threshold: consecutive bf16 bit patterns from 1.0 up (all finite), or
+    0, 1, 2, ... in f32."""
+    if dtype == torch.bfloat16:
+        bits = torch.arange(0x3F80, 0x3F80 + V, dtype=torch.int32, device=dev)
+        row = bits.to(torch.int16).view(torch.bfloat16)
+    else:
+        row = torch.arange(V, dtype=torch.float32, device=dev)
+    return row.expand(R, V).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,R,V,k", [
+    ("misaligned", 2200, 10501, 10),   # odd V: bf16 rows start anywhere; a warp per row
+    ("two_warps", 1500, 3001, 10),     # on 132 SMs, 2 warps share each row
+    ("four_warps", 700, 3001, 10),     # and 4
+    ("small_odd", 29, 129, 10),        # few rows: 8 warps share each row
+    ("ties", 300, 10500, 10),          # 4 levels only
+    ("ascending", 5, 10500, 10),       # every element passes the threshold
+    ("k1", 64, 1001, 1),
+    ("k32", 50, 2000, 32),             # the largest k whose threshold is seeded
+    ("k127", 40, 4099, 127),
+    ("one_row", 1, 10500, 10),
+])
+def test_topk_lse_kernel_edges(dev, dtype, case, R, V, k):
+    gen = torch.Generator(device=dev).manual_seed(V + k)
+    if case == "ties":
+        logits = torch.floor(4 * torch.rand(R, V, generator=gen, device=dev)).to(dtype)
+    elif case == "ascending":
+        logits = _ascending(R, V, dtype, dev)
+    else:
+        logits = (3 * torch.randn(R, V, generator=gen, device=dev)).to(dtype)
+    before = topk_lse.launches
+    got = topk_lse.top_k_with_lse(logits, k)
+    want = topk_lse.top_k_with_lse_plain(logits, k)
+    torch.cuda.synchronize()
+    assert topk_lse.launches == before + 1
+    torch.testing.assert_close(got[0], want[0], atol=0, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=0, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=LSE_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_topk_lse_kernel_past_old_cap(dev):
+    """f32 rows of 65,537: the shared-memory row of the old kernel refused
+    V > 58,112; the misaligned start and odd length need the peeled edges."""
+    gen = torch.Generator(device=dev).manual_seed(65537)
+    logits = 3 * torch.randn(50, 65537, generator=gen, device=dev)
+    got = topk_lse.top_k_with_lse(logits, 10)
+    want = topk_lse.top_k_with_lse_plain(logits, 10)
+    torch.testing.assert_close(got[0], want[0], atol=0, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=0, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=LSE_TOL, rtol=0)
+
+
 def _rois(gen, dev, R, B, extent):
     """Seeded RoIs: random boxes, boxes that leave the map, tiny boxes and
     all-zero padding rows."""
@@ -125,7 +183,8 @@ def _rois(gen, dev, R, B, extent):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,W,C,R,P,S", [(2, 38, 58, 1024, 300, 7, 2),
-                                           (3, 11, 13, 200, 50, 3, 1)])
+                                           (3, 11, 13, 200, 50, 3, 1),
+                                           (2, 9, 10, 64, 40, 4, 3)])   # S² = 9: a division
 def test_roi_align_kernel(dev, dtype, B, H, W, C, R, P, S):
     gen = torch.Generator(device=dev).manual_seed(C)
     feats = torch.randn(B, H, W, C, generator=gen, device=dev).to(dtype)
@@ -137,6 +196,41 @@ def test_roi_align_kernel(dev, dtype, B, H, W, C, R, P, S):
     torch.cuda.synchronize()
     assert roi_align.launches == before + 1
     assert got.dtype == dtype and got.shape == (R, P, P, C)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=ROI_F32_TOL, rtol=0)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=ROI_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["c13", "c36", "subpixel", "whole_map", "batch_past_b"])
+def test_roi_align_kernel_edges(dev, dtype, case):
+    """C = 13 and C = 36 (f32 rows of 144 bytes take 16-byte vectors, bf16
+    rows of 72 bytes do not); RoIs under a feature pixel; RoIs over the whole
+    38 x 58 map and past it; batch indices past B and below 0, which the
+    kernel clamps."""
+    B, H, W, stride = 2, 38, 58, 16.0
+    C = {"c13": 13, "c36": 36}.get(case, 64)
+    gen = torch.Generator(device=dev).manual_seed(C)
+    feats = torch.randn(B, H, W, C, generator=gen, device=dev).to(dtype)
+    rois = _rois(gen, dev, 60, B, stride * max(H, W))
+    if case == "subpixel":
+        rois[:, 3:] = rois[:, 1:3] + torch.rand(60, 2, generator=gen, device=dev) * stride
+    elif case == "whole_map":
+        rois[0] = torch.tensor([0.0, 0.0, 0.0, stride * W - 1, stride * H - 1], device=dev)
+        rois[1] = torch.tensor([1.0, -40.0, -40.0, stride * W + 40, stride * H + 40],
+                               device=dev)
+        rois[2:] = rois[:2].repeat(29, 1)
+    kw = dict(spatial_scale=1 / stride, pooled_height=7, pooled_width=7, sampling_ratio=2)
+    want_rois = rois
+    if case == "batch_past_b":
+        rois[0::3, 0] = B + 2.0
+        rois[1::3, 0] = -1.0
+        want_rois = torch.cat([rois[:, :1].clamp(0, B - 1), rois[:, 1:]], dim=1)
+    got = roi_align.roi_align(feats, rois, **kw)
+    want = roi_align.roi_align_plain(feats, want_rois, **kw)
+    torch.cuda.synchronize()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=ROI_F32_TOL, rtol=0)
     else:

@@ -132,6 +132,31 @@ def test_roi_align_plain_matches_jax_bf16():
         np.testing.assert_allclose(got.float().numpy(), want, rtol=ROI_BF16_RTOL, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_roi_align_plain_matches_pallas_subpixel_c12(dtype):
+    """RoIs smaller than a feature pixel, where all samples of a bin share
+    their corners (the case kernel C's merged taps exploit), and C = 12, which
+    is not a multiple of the kernel's 4- or 8-channel vectors."""
+    rng = np.random.RandomState(3)
+    feats = rng.randn(2, 12, 14, 12).astype(np.float32)
+    R = 9
+    xy = rng.rand(R, 2).astype(np.float32) * 110 - 5
+    wh = rng.rand(R, 2).astype(np.float32) * 7.5          # < 1 px at 1/8
+    rois = np.concatenate([rng.randint(0, 2, (R, 1)).astype(np.float32), xy, xy + wh], 1)
+    kw = dict(spatial_scale=1 / 8.0, pooled_height=7, pooled_width=7, sampling_ratio=2)
+    tf = _t(feats, getattr(torch, dtype))
+    jf = jnp.asarray(tf.float().numpy()).astype(getattr(jnp, dtype))
+    want = np.asarray(roi_align_pallas(jf, jnp.asarray(rois), interpret=True, **kw)
+                      .astype(jnp.float32))
+    got = t_roi_align(tf, _t(rois), **kw)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ROI_F32_TOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=ROI_BF16_RTOL, atol=1e-6)
+    np.testing.assert_array_equal(roi_align_kernel.roi_align(tf, _t(rois), **kw).float().numpy(),
+                                  got.float().numpy())
+
+
 def test_roi_align_chunks_cover_many_rois():
     """More RoIs than one gather chunk: the chunked loop matches the XLA
     version row for row."""

@@ -99,6 +99,31 @@ def test_topk_lse_plain_matches_pallas(dtype, k):
     np.testing.assert_array_equal(i.numpy()[5], np.arange(k))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["ties", "ascending"])
+def test_topk_lse_plain_matches_pallas_hard_rows(dtype, case):
+    """The rows that are hardest for kernel B's threshold filter: values on
+    4 levels, where nearly every entry ties and the lower index must win,
+    and rows that rise strictly, where every element passes the threshold
+    (consecutive bf16 bit patterns from 1.0 up, exact in f32 too)."""
+    R, V, k = 18, 1001, 10
+    rng = np.random.RandomState(6)
+    if case == "ties":
+        logits = np.floor(rng.rand(R, V) * 4).astype(np.float32)
+    else:
+        bits = np.arange(0x3F80, 0x3F80 + V, dtype=np.uint32) << 16
+        logits = np.tile(bits.view(np.float32), (R, 1))
+    jx = jnp.asarray(logits, getattr(jnp, dtype))
+    jv, ji, jl = j_topk_lse(jx, k, interpret=True)
+    v, i, lse = topk_lse.top_k_with_lse_plain(_t(logits, getattr(torch, dtype)), k)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jl), rtol=F32_TOL)
+    want_i = np.arange(V - 1, V - 1 - k, -1) if case == "ascending" else None
+    if want_i is not None:
+        np.testing.assert_array_equal(i.numpy(), np.tile(want_i, (R, 1)))
+
+
 def test_topk_lse_plain_all_neg_inf_rows():
     """All -inf rows: distinct indices in index order, lse -inf (not NaN)."""
     logits = np.full((8, 10), -np.inf, np.float32)
