@@ -26,7 +26,11 @@ one JSON line per phase as it goes:
 5. ``kernel`` rows for the detector's kernels at the full-width shapes of
    BASELINE.json config 5: RoIAlign on a (16, 38, 58, 1024) C4 map with 4,800
    RoIs in f32 and bf16, and NMS at the RPN's 16 x 6,000 boxes and the
-   per-class 1,280 x 300, each against its plain version and timed the same way;
+   per-class 1,280 x 300, each against its plain version and timed the same way,
+   with NMS's two CUDA kernels, the bitmask and the scan, also timed alone
+   (back to back as above, and as a CUDA graph of 10 calls, which leaves the
+   wrapper's host time out) and the scan alone held against
+   ``greedy_scan_plain`` on the same mask;
 6. ``detect``: the full-width Faster R-CNN ResNet-101 (81 classes, 98
    attributes, 12 anchors, 16 canvases of 608 x 928) through
    ``extract_device_features``, with RoIAlign's and NMS's launch counts;
@@ -170,6 +174,24 @@ def time_ms_range(fn, reps: int = 10, samples: int = 5):
     the mean of ``reps`` launches, after one warm-up call."""
     ms = sorted(time_ms(fn, reps, warmup=1 if i == 0 else 0) for i in range(samples))
     return ms[samples // 2], [ms[0], ms[-1]]
+
+
+def graph_ms_range(fn, reps: int = 10, samples: int = 5):
+    """Device time of one call of ``fn``: median and [min, max] over
+    ``samples`` replays of a CUDA graph of ``reps`` calls (CUDA events), so
+    that the host's time per call, which back-to-back timing sees when a
+    kernel is shorter, drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                    # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms, rng = time_ms_range(graph.replay, reps=3, samples=samples)
+    return ms / reps, [rng[0] / reps, rng[1] / reps]
 
 
 def bound(n_bytes: float, n_ops: float, peak: float) -> dict:
@@ -483,6 +505,16 @@ def phase_detector_kernels(dev: torch.device) -> dict:
         upper_words = G * int(span.sum())
         kept_words = int((torch.gather(got[1], 1, perm).long() * span).sum())
         out_len = min(max_out, N) if max_out else N
+        # the scan alone on this mask, against its plain version on the CPU
+        scan_got = nms.greedy_scan(mask, order, max_out)
+        scan_want = nms.greedy_scan_plain(mask.cpu(), None if order is None else order.cpu(),
+                                          max_out)
+        scan_mismatches = int(sum((x.cpu() != y).sum() for x, y in zip(scan_got, scan_want)))
+        bitmask_ms, bitmask_range = time_ms_range(lambda: nms.suppression_bitmask(sboxes, thr))
+        scan_ms, scan_range = time_ms_range(lambda: nms.greedy_scan(mask, order, max_out))
+        bitmask_dev, bitmask_dev_range = graph_ms_range(
+            lambda: nms.suppression_bitmask(sboxes, thr))
+        scan_dev, scan_dev_range = graph_ms_range(lambda: nms.greedy_scan(mask, order, max_out))
         kernel_ms, kernel_range = time_ms_range(
             lambda: nms.nms(boxes, scores, thr, max_out=max_out, presorted=presorted))
         out_bytes = G * out_len * 4 + G * N
@@ -503,18 +535,24 @@ def phase_detector_kernels(dev: torch.device) -> dict:
                # the wrapper's two CUDA kernels, each timed alone. The
                # bitmask computes the upper triangle's IoUs and writes its
                # words; the scan needs the words of the kept rows only.
-               "bitmask": {"ms": time_ms(lambda: nms.suppression_bitmask(sboxes, thr), 10),
+               "bitmask": {"ms": bitmask_ms, "ms_range": bitmask_range,
+                           "graph_ms": bitmask_dev, "graph_ms_range": bitmask_dev_range,
                            **bound(sboxes.numel() * 4 + upper_words * 8, iou_ops,
                                    PEAK_OPS[torch.float32])},
-               "scan": {"ms": time_ms(lambda: nms.greedy_scan(mask, order, max_out), 10),
+               "scan": {"ms": scan_ms, "ms_range": scan_range,
+                        "graph_ms": scan_dev, "graph_ms_range": scan_dev_range,
+                        "mismatches_vs_greedy_scan_plain": scan_mismatches,
                         **bound(kept_words * 8 + order_bytes + out_bytes, 0,
                                 PEAK_OPS[torch.float32])}}
         emit(row)
         if mismatches:
             fail(f"{site}: keep_idx/keep_mask differ from the plain version in "
                  f"{mismatches} entries")
+        if scan_mismatches:
+            fail(f"{site}: the scan alone differs from greedy_scan_plain on the same mask "
+                 f"in {scan_mismatches} entries")
         rows[site] = row
-        del boxes, scores, got, want, mask, sboxes
+        del boxes, scores, got, want, mask, sboxes, scan_got, scan_want
     return rows
 
 

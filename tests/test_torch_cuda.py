@@ -7,6 +7,7 @@ without the JAX-side test configuration:
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -269,6 +270,47 @@ def test_nms_kernel(dev, G, N, thr, max_out, presorted):
     assert nms.launches_by_shape[(G, N)] == before_shape + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+
+
+def _scan_words(rng, G, N, density):
+    """Synthetic words (G, N, ceil(N / 64)) int64 for the scan alone: random
+    bits at ``density`` in every word from the diagonal on (bits at or below
+    the diagonal and at or past N included, which the scan must ignore), or
+    the chain (row i marks only box i + 1, so every other box is kept);
+    every word below the diagonal -1, so that a read there shows."""
+    words = -(-N // 64)
+    if density == "chain":
+        bits = np.zeros((G, N, words * 64), bool)
+        bits[:, np.arange(N - 1), np.arange(1, N)] = True
+    else:
+        bits = rng.randint(0, 1 << 16, (G, N, words * 64), dtype=np.int32) < density * (1 << 16)
+    w = np.packbits(bits, axis=-1, bitorder="little").view(np.int64).copy()
+    w[:, np.arange(words)[None, :] < (np.arange(N) // 64)[:, None]] = -1
+    return torch.from_numpy(w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("permuted", [False, True])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 6000, 6001])
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.5, 1.0, "chain"])
+def test_greedy_scan_kernel(dev, density, N, permuted):
+    """The scan kernel alone against greedy_scan_plain, for max_out 0, 300
+    and N + 5, with the identity order or a random permutation."""
+    rng = np.random.RandomState(N)
+    G = 2 if N > 1000 else 3
+    words = _scan_words(rng, G, N, density)
+    order = torch.from_numpy(np.stack([rng.permutation(N) for _ in range(G)]).astype(np.int32)) \
+        if permuted else None
+    want_idx, want_mask = nms.greedy_scan_plain(words, order, 0)
+    if density == 1.0:                                       # only the first box survives
+        assert int(want_mask.sum()) == G
+    for max_out in (0, 300, N + 5):
+        got_idx, got_mask = nms.greedy_scan(words.to(dev), None if order is None
+                                            else order.to(dev), max_out)
+        torch.cuda.synchronize()
+        out_len = min(max_out, N) if max_out else N
+        assert torch.equal(got_idx.cpu(), want_idx[:, :out_len])
+        assert torch.equal(got_mask.cpu(), want_mask)
 
 
 @pytest.mark.cuda

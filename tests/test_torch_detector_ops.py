@@ -211,13 +211,33 @@ def _jax_nms_uncached(boxes, scores, thr, max_out, presorted):
 IMPLS = {"plain": tnms.nms, "kernel_wrapper": nms_kernel.nms}
 
 
+def chain_boxes(rng, n):
+    """A chain of n boxes 10 px wide, each 3 px right of the one before:
+    neighbours overlap at IoU 70 / 130 > 0.5, boxes two apart at 40 / 160.
+    Scores fall along the chain, so greedy NMS at 0.5 keeps every other box;
+    boxes and scores are shuffled together, so the sort has work to do."""
+    x = 3.0 * np.arange(n)
+    boxes = np.stack([x, np.zeros(n), x + 9.0, np.full(n, 9.0)], 1).astype(np.float32)
+    scores = np.linspace(1.0, 0.1, n).astype(np.float32)
+    perm = rng.permutation(n)
+    return boxes[perm], scores[perm]
+
+
 @pytest.mark.parametrize("impl", sorted(IMPLS))
-@pytest.mark.parametrize("n,thr,max_out", [(60, 0.5, 0), (200, 0.7, 0), (130, 0.3, 17)])
-def test_nms_matches_jax_and_reference(impl, n, thr, max_out):
+@pytest.mark.parametrize("n,thr,max_out,chain", [
+    pytest.param(60, 0.5, 0, False, id="60-0.5-0"),
+    pytest.param(200, 0.7, 0, False, id="200-0.7-0"),
+    pytest.param(130, 0.3, 17, False, id="130-0.3-17"),
+    pytest.param(130, 0.5, 0, True, id="chain-130-0.5-0"),    # crosses two word boundaries
+])
+def test_nms_matches_jax_and_reference(impl, n, thr, max_out, chain):
     rng = np.random.RandomState(n)
     G = 3
-    boxes = np.stack([random_boxes(rng, n) for _ in range(G)])
-    scores = rng.rand(G, n).astype(np.float32)
+    if chain:
+        boxes, scores = map(np.stack, zip(*[chain_boxes(rng, n) for _ in range(G)]))
+    else:
+        boxes = np.stack([random_boxes(rng, n) for _ in range(G)])
+        scores = rng.rand(G, n).astype(np.float32)
     before = (nms_kernel.launches, dict(nms_kernel.launches_by_shape))
     keep_idx, keep_mask = IMPLS[impl](_t(boxes), _t(scores), thr, max_out=max_out)
     # on CPU tensors the wrapper runs the plain version and counts no launch
@@ -234,6 +254,8 @@ def test_nms_matches_jax_and_reference(impl, n, thr, max_out):
         kept = kept[kept >= 0]
         np.testing.assert_array_equal(kept, golden[:len(kept)])
         assert keep_mask[g].sum().item() == len(golden)
+        if chain:
+            np.testing.assert_array_equal(golden, np.argsort(-scores[g])[::2])
 
 
 @pytest.mark.parametrize("impl", sorted(IMPLS))
@@ -278,6 +300,76 @@ def test_nms_presorted(impl):
     (ref_idx, ref_mask), _ = _jax_nms(boxes[None], scores[None], 0.7, 60, presorted=True)[0]
     np.testing.assert_array_equal(got[0][0].numpy(), ref_idx)
     np.testing.assert_array_equal(got[1][0].numpy(), ref_mask)
+
+
+def pack_words(matrix: torch.Tensor, below: int = -1) -> torch.Tensor:
+    """(G, N, N) bool suppression matrix → kernel D's (G, N, ceil(N / 64))
+    int64 words (bit k of word w of row i: box 64 w + k). Every word below
+    the diagonal is ``below``, by default -1, all bits set: the scan must
+    not read it."""
+    m = matrix.numpy()
+    G, N, _ = m.shape
+    words = -(-N // 64)
+    padded = np.zeros((G, N, words * 64), bool)
+    padded[..., :N] = m
+    w = np.packbits(padded, axis=-1, bitorder="little").view(np.int64).copy()
+    w[:, np.arange(words)[None, :] < (np.arange(N) // 64)[:, None]] = below
+    return torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("n,max_out", [(1, 0), (63, 0), (63, 17), (64, 0), (65, 17),
+                                       (300, 0), (300, 40), ("chain", 0), ("chain", 40)])
+def test_greedy_scan_plain_matches_nms_and_jax(n, max_out):
+    """The scan alone: the packed words of the port's suppression matrix
+    through ``greedy_scan_plain`` (and ``greedy_scan``, which runs it on CPU
+    tensors) give the plain NMS's outputs, the Pallas kernel's (interpret
+    mode) and the JAX ``nms``'s, sorted by the permutation and presorted;
+    the chain (130 boxes) crosses the 63 → 64 and 127 → 128 word edges."""
+    rng = np.random.RandomState(7 if n == "chain" else n)
+    G, thr = 2, 0.5
+    if n == "chain":
+        n = 130
+        boxes, scores = map(np.stack, zip(*[chain_boxes(rng, n) for _ in range(G)]))
+    else:
+        boxes = np.stack([random_boxes(rng, n) for _ in range(G)])
+        scores = rng.rand(G, n).astype(np.float32)
+    tb, ts = _t(boxes), _t(scores)
+    order = tnms.sort_desc(ts)
+    sboxes = torch.gather(tb, 1, order[..., None].expand(G, n, 4))
+    words = pack_words(tnms.suppression_matrix(sboxes, thr))
+    want = tnms.nms(tb, ts, thr, max_out=max_out)
+    before = nms_kernel.launches
+    for scan in (nms_kernel.greedy_scan_plain, nms_kernel.greedy_scan):
+        got = scan(words, order.to(torch.int32), max_out)
+        assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    assert nms_kernel.launches == before
+    for g, refs in enumerate(_jax_nms(boxes, scores, thr, max_out)):
+        for ref_idx, ref_mask in refs:
+            np.testing.assert_array_equal(want[0][g].numpy(), ref_idx)
+            np.testing.assert_array_equal(want[1][g].numpy(), ref_mask)
+    # presorted: the identity order
+    got = nms_kernel.greedy_scan_plain(words, None, max_out)
+    want = tnms.nms(sboxes, torch.gather(ts, 1, order), thr, max_out=max_out, presorted=True)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_greedy_scan_plain_ignores_words_below_diagonal_and_bits_past_n():
+    """Only the strict upper triangle of rows < N counts: random bits at or
+    below the diagonal and at or past N change nothing."""
+    rng = np.random.RandomState(1)
+    G, n = 2, 100
+    matrix = torch.from_numpy(rng.rand(G, n, n) < 0.05).triu(1)
+    # the bits that count: j > i, j < N, in words from the diagonal on
+    counted = pack_words(torch.ones_like(matrix).triu(1), below=0)
+    noise = torch.from_numpy(rng.randint(-2 ** 63, 2 ** 63 - 1, counted.shape, dtype=np.int64))
+    words = (pack_words(matrix) & counted) | (noise & ~counted)
+    perm = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(G)]).astype(np.int32))
+    want = tnms.compact(tnms.greedy_scan(matrix), perm.long())
+    for x, y in zip(nms_kernel.greedy_scan_plain(words, perm), want):
+        assert torch.equal(x, y)
 
 
 def test_suppression_matrix_equals_pallas_bitmask():
