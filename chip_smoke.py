@@ -29,8 +29,11 @@ one JSON line per phase as it goes:
    per-class 1,280 x 300, each against its plain version and timed the same way,
    with NMS's two CUDA kernels, the bitmask and the scan, also timed alone
    (back to back as above, and as a CUDA graph of 10 calls, which leaves the
-   wrapper's host time out) and the scan alone held against
-   ``greedy_scan_plain`` on the same mask;
+   wrapper's host time out), the bitmask's words held against
+   ``suppression_bitmask_plain`` in the upper triangle, the scan alone held
+   against ``greedy_scan_plain`` on the same mask, and all three again on
+   the boundary set (boxes whose IoUs sit at the threshold's rounding
+   boundary) against the plain versions on the CPU;
 6. ``detect``: the full-width Faster R-CNN ResNet-101 (81 classes, 98
    attributes, 12 anchors, 16 canvases of 608 x 928) through
    ``extract_device_features``, with RoIAlign's and NMS's launch counts;
@@ -115,8 +118,15 @@ NMS_CALLS = {"nms_rpn": (DET_BATCH, TEST.rpn_pre_nms_top_n, TEST.rpn_nms_thresh,
              "nms_per_class": (DET_BATCH * (DET_CLASSES - 1), TEST.rpn_post_nms_top_n,
                                TEST.nms_thresh, 0, False)}
 # f32 operations per IoU of a pair: 2 x (min, max, sub, add), 2 clamps, the
-# product, add, sub, divide and the comparison
+# product, add, sub, divide and the comparison. None is an FMA, while the
+# published 67 TFLOP/s counts an FMA as two: the card issues these at about
+# half that rate, so the stated bound is about half what it can reach.
 NMS_OPS_PER_PAIR = 15
+NMS_BOUND_NOTE = ("15 non-FMA f32 operations a pair over 67 TFLOP/s, a rate that counts an "
+                  "FMA as two: the card issues them at about half that")
+# the boundary set's groups at each site, small enough for the plain
+# versions on the CPU
+NMS_BOUNDARY_GROUPS = {"nms_rpn": 2, "nms_per_class": 64}
 # f32 operations per RoIAlign output element: S^2 = 4 samples of 4 corner
 # products and sums, and the mean
 ROI_OPS_PER_OUT = 33
@@ -500,6 +510,7 @@ def phase_detector_kernels(dev: torch.device) -> dict:
         sboxes = torch.gather(boxes, 1, perm[..., None].expand(G, N, 4)).contiguous()
         order = None if presorted else perm.to(torch.int32).contiguous()
         mask = nms.suppression_bitmask(sboxes, thr)
+        bitmask_mismatches = triangle_mismatches(mask, nms.suppression_bitmask_plain(sboxes, thr))
         words = mask.shape[-1]
         span = words - torch.arange(N, device=dev) // 64       # words from the diagonal on
         upper_words = G * int(span.sum())
@@ -510,6 +521,7 @@ def phase_detector_kernels(dev: torch.device) -> dict:
         scan_want = nms.greedy_scan_plain(mask.cpu(), None if order is None else order.cpu(),
                                           max_out)
         scan_mismatches = int(sum((x.cpu() != y).sum() for x, y in zip(scan_got, scan_want)))
+        boundary = boundary_check(site, N, thr, max_out, presorted, dev)
         bitmask_ms, bitmask_range = time_ms_range(lambda: nms.suppression_bitmask(sboxes, thr))
         scan_ms, scan_range = time_ms_range(lambda: nms.greedy_scan(mask, order, max_out))
         bitmask_dev, bitmask_dev_range = graph_ms_range(
@@ -532,28 +544,72 @@ def phase_detector_kernels(dev: torch.device) -> dict:
                "library_ms": None,
                **bound(boxes.numel() * 4 + (0 if presorted else scores.numel() * 4)
                        + out_bytes, iou_ops, PEAK_OPS[torch.float32]),
+               "bound_note": NMS_BOUND_NOTE,
                # the wrapper's two CUDA kernels, each timed alone. The
                # bitmask computes the upper triangle's IoUs and writes its
                # words; the scan needs the words of the kept rows only.
                "bitmask": {"ms": bitmask_ms, "ms_range": bitmask_range,
                            "graph_ms": bitmask_dev, "graph_ms_range": bitmask_dev_range,
+                           "mismatches": bitmask_mismatches,
                            **bound(sboxes.numel() * 4 + upper_words * 8, iou_ops,
-                                   PEAK_OPS[torch.float32])},
+                                   PEAK_OPS[torch.float32]),
+                           "bound_note": NMS_BOUND_NOTE},
                "scan": {"ms": scan_ms, "ms_range": scan_range,
                         "graph_ms": scan_dev, "graph_ms_range": scan_dev_range,
                         "mismatches_vs_greedy_scan_plain": scan_mismatches,
                         **bound(kept_words * 8 + order_bytes + out_bytes, 0,
-                                PEAK_OPS[torch.float32])}}
+                                PEAK_OPS[torch.float32])},
+               "boundary": boundary}
         emit(row)
-        if mismatches:
+        if mismatches or boundary["mismatches"]:
             fail(f"{site}: keep_idx/keep_mask differ from the plain version in "
-                 f"{mismatches} entries")
-        if scan_mismatches:
+                 f"{mismatches} entries (boundary set: {boundary['mismatches']})")
+        if bitmask_mismatches or boundary["bitmask_mismatches"]:
+            fail(f"{site}: the bitmask's words differ from suppression_bitmask_plain in "
+                 f"{bitmask_mismatches} words (boundary set: {boundary['bitmask_mismatches']})")
+        if scan_mismatches or boundary["scan_mismatches"]:
             fail(f"{site}: the scan alone differs from greedy_scan_plain on the same mask "
-                 f"in {scan_mismatches} entries")
+                 f"in {scan_mismatches} entries (boundary set: {boundary['scan_mismatches']})")
         rows[site] = row
         del boxes, scores, got, want, mask, sboxes, scan_got, scan_want
     return rows
+
+
+def triangle_mismatches(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Words of the strict upper triangle (each row's words from its
+    diagonal word on; the kernel leaves the rest unwritten) that differ."""
+    G, N, words = got.shape
+    upper = (torch.arange(words, device=got.device)[None, :]
+             >= (torch.arange(N, device=got.device) // 64)[:, None])
+    return int(((got != want.to(got.device)) & upper).sum())
+
+
+def boundary_check(site: str, N: int, thr: float, max_out: int, presorted: bool,
+                   dev: torch.device) -> dict:
+    """The boundary set at a call site's box count and threshold (pairs of
+    one-pixel-high boxes with IoU c / U exactly, c = round(t U) ± 2): the
+    whole call, the bitmask's words and the scan alone on them, against the
+    plain versions on the CPU."""
+    G = NMS_BOUNDARY_GROUPS[site]
+    boxes = nms.boundary_boxes(G, N, thr, seed=N)
+    scores = torch.from_numpy(np.random.RandomState(N).rand(G, N).astype(np.float32))
+    if presorted:
+        scores = torch.sort(scores, dim=1, descending=True).values
+    got = nms.nms(boxes.to(dev), scores.to(dev), thr, max_out=max_out, presorted=presorted)
+    want = nms.nms_plain(boxes, scores, thr, max_out=max_out, presorted=presorted)
+    perm = torch.arange(N).expand(G, N) if presorted else nms.sort_desc(scores)
+    sboxes = torch.gather(boxes, 1, perm[..., None].expand(G, N, 4)).contiguous()
+    order = None if presorted else perm.to(torch.int32)
+    mask = nms.suppression_bitmask(sboxes.to(dev), thr)
+    scan_got = nms.greedy_scan(mask, None if order is None else order.to(dev), max_out)
+    scan_want = nms.greedy_scan_plain(mask.cpu(), order, max_out)
+    return {"groups": G, "boxes": N,
+            "kept_per_group": got[1].sum(dim=1).float().mean().item(),
+            "mismatches": int(sum((x.cpu() != y).sum() for x, y in zip(got, want))),
+            "bitmask_mismatches": triangle_mismatches(
+                mask.cpu(), nms.suppression_bitmask_plain(sboxes, thr)),
+            "scan_mismatches": int(sum((x.cpu() != y).sum()
+                                       for x, y in zip(scan_got, scan_want)))}
 
 
 def detector_setup(dev: torch.device):

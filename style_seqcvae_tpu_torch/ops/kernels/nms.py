@@ -5,9 +5,13 @@ Counterpart of ``style_seqcvae_tpu/ops/pallas/nms.py::nms_pallas`` (the
 :func:`nms` launches the two hand-written kernels of ``csrc/nms.cu``, the
 bitmask and the scan, and counts one launch; on CPU tensors it runs
 :func:`nms_plain` (``ops/nms.py::nms``: the pairwise suppression matrix in
-torch plus a greedy scan in Python), with the same outputs. The scan alone,
-:func:`greedy_scan`, has its own plain version, :func:`greedy_scan_plain`,
-which reads the same 64-bit mask words.
+torch plus a greedy scan in Python), with the same outputs. The bitmask
+alone, :func:`suppression_bitmask`, has its plain version,
+:func:`suppression_bitmask_plain`, and so does the scan alone,
+:func:`greedy_scan`: :func:`greedy_scan_plain`, which reads the same 64-bit
+mask words. :func:`iou_exceeds_plain` mirrors the bitmask kernel's
+division-free threshold test, and :func:`boundary_boxes` makes boxes whose
+IoUs sit at that test's rounding boundary.
 """
 
 from __future__ import annotations
@@ -15,12 +19,14 @@ from __future__ import annotations
 from collections import Counter
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from style_seqcvae_tpu_torch.ops.nms import compact
 from style_seqcvae_tpu_torch.ops.nms import greedy_scan as greedy_scan_matrix
 from style_seqcvae_tpu_torch.ops.nms import nms as nms_plain
 from style_seqcvae_tpu_torch.ops.nms import sort_desc
+from style_seqcvae_tpu_torch.ops.nms import suppression_matrix
 
 # calls that launched the CUDA kernels in this process (the plain version
 # not counted), in all and by the (groups, boxes) shape of the call
@@ -29,7 +35,7 @@ launches_by_shape: Counter = Counter()
 
 _BOX = 64                       # boxes per mask word
 _MAX_SMEM_BYTES = 227 * 1024
-_MAX_GROUPS = 65535             # grid z of the bitmask kernel
+_MAX_GROUPS = 65535             # the most groups a call takes
 _UNPACK_PAIRS = 1 << 26         # (chunk of groups) x N x N bits unpacked at once
 
 
@@ -47,8 +53,15 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor) -> None:
 
 def suppression_bitmask(boxes_sorted: torch.Tensor, threshold: float) -> torch.Tensor:
     """CUDA only: (G, N, 4) contiguous f32 score-sorted boxes → the
-    (G, N, ceil(N / 64)) int64 words of the upper-triangle suppression mask.
-    Words below the diagonal are left unwritten."""
+    (G, N, ceil(N / 64)) int64 words of the upper-triangle suppression mask
+    (bit k of word w of row i marks box 64 w + k > i). Words below each
+    row's diagonal word are left unwritten."""
+    if (boxes_sorted.dim() != 3 or boxes_sorted.shape[-1] != 4
+            or boxes_sorted.dtype != torch.float32 or not boxes_sorted.is_contiguous()
+            or boxes_sorted.device.type != "cuda" or boxes_sorted.data_ptr() % 16):
+        raise ValueError("boxes must be (G, N, 4) contiguous, 16-byte aligned float32 on "
+                         f"a CUDA device, got {tuple(boxes_sorted.shape)} {boxes_sorted.dtype} "
+                         f"on {boxes_sorted.device}")
     from style_seqcvae_tpu_torch.ops.kernels import _build
 
     G, N, _ = boxes_sorted.shape
@@ -60,6 +73,95 @@ def suppression_bitmask(boxes_sorted: torch.Tensor, threshold: float) -> torch.T
                                  float(threshold), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "nms bitmask")
     return mask
+
+
+def pack_words(matrix: torch.Tensor) -> torch.Tensor:
+    """(G, N, N) bool → (G, N, ceil(N / 64)) int64: bit k of word w of row
+    i is ``matrix[g, i, 64 w + k]``, bits at or past N 0."""
+    G, N, _ = matrix.shape
+    words = -(-N // _BOX)
+    weights = 1 << torch.arange(8, dtype=torch.int32, device=matrix.device)
+    out = torch.empty((G, N, words * 8), dtype=torch.uint8, device=matrix.device)
+    step = max(1, _UNPACK_PAIRS // max(N * N, 1))
+    for g0 in range(0, G, step):
+        bits = torch.zeros((min(step, G - g0), N, words * _BOX), dtype=torch.int32,
+                           device=matrix.device)
+        bits[..., :N] = matrix[g0:g0 + step]
+        out[g0:g0 + step] = (bits.view(-1, N, words * 8, 8) * weights).sum(-1).to(torch.uint8)
+    return out.view(torch.int64)
+
+
+def suppression_bitmask_plain(boxes_sorted: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Plain version of :func:`suppression_bitmask` on any device:
+    ``ops/nms.py``'s ``suppression_matrix`` in the kernel's words. Its words
+    below the diagonal are 0, where the kernel's are unwritten."""
+    return pack_words(suppression_matrix(boxes_sorted, threshold))
+
+
+def fast_test_constants(threshold: float) -> Tuple[np.float32, np.float32]:
+    """The f32 threshold t and half the ulp above it, h, as the bitmask
+    kernel's host code computes them; h is NaN where the division-free test
+    is not sound (t outside [2^-60, 2^20], negative and NaN included)."""
+    t = np.float32(threshold)
+    if not 2.0 ** -60 <= t <= 2.0 ** 20:
+        return t, np.float32(np.nan)
+    return t, (np.nextafter(t, np.float32(np.inf)) - t) * np.float32(0.5)
+
+
+def iou_exceeds_plain(inter: torch.Tensor, union: torch.Tensor, threshold: float
+                      ) -> torch.Tensor:
+    """Plain mirror of the bitmask kernel's decision, on CPU tensors: f32
+    ``inter`` and ``union`` → ``fl(inter / union) > t`` (t the f32
+    threshold), decided without a division where that is sound. fl(q) > t
+    iff q lies above the midpoint t + h between t and the next f32, that
+    is, for union > 0, iff inter - t · union > h · union. e, that difference
+    rounded to f32 (the kernel's FMA; here the exact product in float64,
+    then rounded), and the exact h · union settle it whenever they differ:
+    rounding is monotone. Where they are equal, or the union is not positive
+    with h · union a normal f32, it divides as the plain version does. The
+    kernel keeps the union in range through the boxes' areas instead."""
+    t, h = fast_test_constants(threshold)
+    inter, union = inter.float(), union.float()
+    e = (inter.double() - float(t) * union.double()).float()
+    hu = union * float(h)
+    above = e > hu
+    unsure = ~(e < hu) & ~above
+    unsure |= ~((union >= np.float32(np.finfo(np.float32).tiny) / h)
+                & (union <= np.finfo(np.float32).max))
+    return torch.where(unsure, inter / union > float(t), above)
+
+
+def boundary_boxes(G: int, N: int, threshold: float, seed: int = 0) -> torch.Tensor:
+    """(G, N, 4) f32 boxes on the CPU in pairs, each pair a row of its own
+    (y = 2 p, one pixel high): [0, y, U - 1, y] and [0, y, c - 1, y], so that
+    inter = c and union = U exactly and the pair's IoU is c / U. U runs over
+    small integers (7 / 10 among them), integers up to 10^6 and multiples of
+    2^-4 up to 2^19; c is round(t U) ± 2 on the same grid, so that the IoUs
+    fall on both sides of t and on t itself. Pairs of one row block may come
+    either way round; an odd last box stands alone."""
+    rng = np.random.RandomState(seed)
+    t = float(np.float32(threshold))
+    P = G * (N // 2)
+    small = np.arange(1, 21, dtype=np.float64)
+    kind = rng.randint(0, 3, P)
+    U = np.where(kind == 0, rng.choice(small, P),
+                 np.where(kind == 1, np.round(np.exp(rng.uniform(0, np.log(1e6), P))),
+                          np.round(np.exp(rng.uniform(np.log(16), np.log(2 ** 23), P))) / 16))
+    U[:min(P, 2)] = 10.0
+    grid = np.where(kind == 2, 16.0, 1.0)
+    c = (np.round(t * U * grid) + rng.randint(-2, 3, P)) / grid
+    c[:min(P, 2)] = [7.0, 3.0][:min(P, 2)]
+    c = np.clip(c, 1.0 / grid, U)
+    y = 2.0 * (np.arange(P) % max(N // 2, 1))
+    big = np.stack([np.zeros(P), y, U - 1, y], -1)
+    sml = np.stack([np.zeros(P), y, c - 1, y], -1)
+    flip = rng.rand(P) < 0.5
+    pairs = np.where(flip[:, None, None], np.stack([sml, big], 1), np.stack([big, sml], 1))
+    boxes = np.zeros((G, N, 4), np.float32)
+    boxes[:, :2 * (N // 2)] = pairs.reshape(G, 2 * (N // 2), 4)
+    if N % 2:
+        boxes[:, -1] = [0.0, 2.0 * (N // 2), 9.0, 2.0 * (N // 2)]
+    return torch.from_numpy(boxes)
 
 
 def greedy_scan_plain(mask: torch.Tensor, order: Optional[torch.Tensor], max_out: int = 0

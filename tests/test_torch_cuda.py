@@ -250,26 +250,99 @@ def _boxes(gen, dev, G, N, extent=600.0):
     (1280, 300, 0.3, 0, False),       # the per-class call at full width
     (5, 77, 0.5, 10, False),          # N not a multiple of 64
     (3, 64, 0.5, 100, True),          # max_out beyond N
+    (4, 1001, 0.9, 0, False),
+    (2, 6001, 0.3, 300, True),
 ])
 def test_nms_kernel(dev, G, N, thr, max_out, presorted):
+    """Seeded boxes (ties, a duplicate, a box of area 0), then the boundary
+    set (pairs whose IoU is c / U exactly, at and around t), through the
+    kernels against the plain version."""
     gen = torch.Generator(device=dev).manual_seed(N)
     boxes = _boxes(gen, dev, G, N)
     scores = torch.rand(G, N, generator=gen, device=dev)
     scores[:, 3:9] = 0.5                                     # exact ties
     boxes[:, 4] = boxes[:, 3]                                # a tied duplicate
     boxes[:, 10] = torch.tensor([5.0, 5.0, 4.0, 3.0], device=dev)   # x2 < x1: area 0
-    if presorted:
-        order = torch.sort(scores, dim=1, descending=True, stable=True).indices
-        scores = torch.gather(scores, 1, order)
-        boxes = torch.gather(boxes, 1, order[..., None].expand(G, N, 4)).contiguous()
-    before, before_shape = nms.launches, nms.launches_by_shape[(G, N)]
-    got = nms.nms(boxes, scores, thr, max_out=max_out, presorted=presorted)
-    want = nms.nms_plain(boxes, scores, thr, max_out=max_out, presorted=presorted)
-    torch.cuda.synchronize()
-    assert nms.launches == before + 1
-    assert nms.launches_by_shape[(G, N)] == before_shape + 1
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    for case in (boxes, nms.boundary_boxes(G, N, thr, seed=N).to(dev)):
+        b, sc = case, scores
+        if presorted:
+            order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+            sc = torch.gather(scores, 1, order)
+            b = torch.gather(case, 1, order[..., None].expand(G, N, 4)).contiguous()
+        before, before_shape = nms.launches, nms.launches_by_shape[(G, N)]
+        got = nms.nms(b, sc, thr, max_out=max_out, presorted=presorted)
+        want = nms.nms_plain(b, sc, thr, max_out=max_out, presorted=presorted)
+        torch.cuda.synchronize()
+        assert nms.launches == before + 1
+        assert nms.launches_by_shape[(G, N)] == before_shape + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+
+
+def _check_bitmask(boxes, thr):
+    """The kernel's words of sorted boxes (G, N, 4) against
+    ``suppression_bitmask_plain`` on the CPU, in the strict upper triangle
+    only (each row's words from its diagonal word on); launched once more
+    on a buffer of -1 through the C interface, the words below the diagonal
+    must stay -1."""
+    from style_seqcvae_tpu_torch.ops.kernels import _build
+
+    G, N, _ = boxes.shape
+    got = nms.suppression_bitmask(boxes, thr)
+    want = nms.suppression_bitmask_plain(boxes.cpu(), thr)
+    words = got.shape[-1]
+    upper = torch.arange(words)[None, :] >= (torch.arange(N) // 64)[:, None]
+    mismatched = (got.cpu() != want) & upper
+    assert int(mismatched.sum()) == 0, mismatched.nonzero()[:5].tolist()
+    filled = torch.full_like(got, -1)
+    lib = _build.library()
+    _build.check(lib, lib.ssc_nms_bitmask(boxes.data_ptr(), filled.data_ptr(), G, N, float(thr),
+                                          torch.cuda.current_stream().cuda_stream), "bitmask")
+    filled = filled.cpu()
+    assert torch.equal(filled[:, upper], got.cpu()[:, upper])
+    assert bool((filled[:, ~upper] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 300, 6000, 6001])
+@pytest.mark.parametrize("site,thr", [("rpn", 0.7), ("per_class", 0.3)])
+def test_nms_bitmask_kernel(dev, site, thr, N):
+    """The bitmask alone on proposal-like boxes (16 to 400 px over a
+    600 x 900 image, as chip_smoke.py seeds both call sites), at the site's
+    threshold."""
+    G = 2 if N > 1000 else 24
+    gen = torch.Generator(device=dev).manual_seed(N + int(thr * 10))
+    ctr = torch.rand(G, N, 2, generator=gen, device=dev) * torch.tensor([900.0, 600.0],
+                                                                         device=dev)
+    wh = torch.rand(G, N, 2, generator=gen, device=dev) * 384.0 + 16.0
+    _check_bitmask(torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1).contiguous(), thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.3, 0.5, 0.7, 0.9])
+def test_nms_bitmask_kernel_boundary(dev, thr):
+    """The boundary set: pairs of one-pixel-high boxes with inter = c and
+    union = U exactly, c = round(t U) ± 2 (7 / 10 among them), U up to 10^6
+    and multiples of 2^-4 up to 2^19."""
+    for G, N in ((2, 6000), (64, 300), (3, 65)):
+        _check_bitmask(nms.boundary_boxes(G, N, thr, seed=N).to(dev), thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.3, 0.5, 0.7, 0.9, 0.0, -0.5, 1e-40])
+def test_nms_bitmask_kernel_degenerate(dev, thr):
+    """Zero, negative and huge areas, identical and all-zero boxes, inf and
+    NaN coordinates, among random ones; and thresholds where the
+    division-free test does not hold (0, negative, subnormal), which send
+    every pair to the division."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    odd = torch.tensor([[5, 5, 4, 3], [5, 5, 4, 3], [0, 0, 0, 0], [5, 5, 3, 8], [1, 1, -5, -5],
+                        [0, 0, 1e30, 1e30], [0, 0, 3e38, 3e38], [0, 0, float("inf"), 5],
+                        [0, 0, float("nan"), 3], [2, 2, 2, 2], [0, 0, 0, 0]], device=dev)
+    boxes = _boxes(gen, dev, 3, 130, extent=60.0)
+    boxes[:, ::12] = odd[: len(range(0, 130, 12))]
+    boxes[:, 1::12] = boxes[:, ::12]                       # identical to the one before
+    _check_bitmask(boxes.contiguous(), thr)
 
 
 def _scan_words(rng, G, N, density):
@@ -329,3 +402,7 @@ def test_wrappers_raise_on_cuda_misuse(dev):
     with pytest.raises(TypeError):
         nms.nms(torch.zeros(1, 5, 4, device=dev, dtype=torch.float64),
                 torch.zeros(1, 5, device=dev), 0.5)
+    with pytest.raises(ValueError):
+        nms.suppression_bitmask(torch.zeros(2, 5, 4, device=dev).transpose(0, 1), 0.5)
+    with pytest.raises(ValueError):
+        nms.suppression_bitmask(torch.zeros(41, device=dev)[1:].view(1, 10, 4), 0.5)  # 4 B off

@@ -385,6 +385,117 @@ def test_suppression_matrix_equals_pallas_bitmask():
         np.testing.assert_array_equal(got, want)
 
 
+THRESHOLDS = (0.3, 0.5, 0.7, 0.9)
+
+
+@pytest.mark.parametrize("thr", THRESHOLDS)
+def test_suppression_matrix_equals_pallas_bitmask_at_boundary(thr):
+    """Bit for bit at the rounding boundary: pairs of one-pixel-high boxes
+    whose IoU is exactly c / U, c = round(t U) ± 2 (7 / 10 among them),
+    through the port's suppression matrix and the Pallas kernel (interpret
+    mode). This pins the reference semantics the CUDA bitmask is held to."""
+    n = 256
+    boxes = nms_kernel.boundary_boxes(1, n, thr, seed=int(thr * 10))[0].numpy()
+    words = np.asarray(suppression_bitmask(jnp.asarray(boxes), thr, interpret=True))
+    want = ((words[:, :, None] >> np.arange(16)) & 1).reshape(n, n).astype(bool)
+    got = tnms.suppression_matrix(_t(boxes[None]), thr)[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    # the pair 10 / 7 rounds to t = fl(0.7) itself: not above it
+    assert not got[0, 1] or thr < 0.7
+    assert (got[np.arange(0, n, 2), np.arange(1, n, 2)].any()
+            and not got[np.arange(0, n, 2), np.arange(1, n, 2)].all())
+
+
+def _adversarial_pairs(rng, t, n):
+    """f32 (inter, union): unions over many scales (and integers), inters
+    within 3 ulps of fl(t * union), then the degenerate cases."""
+    union = np.concatenate([np.exp(rng.uniform(-60, 60, n // 2)),
+                            np.round(np.exp(rng.uniform(0, 14, n - n // 2)))]).astype(np.float32)
+    inter = (np.float32(t) * union).astype(np.float32)
+    steps = rng.randint(-3, 4, n)
+    toward = np.where(steps > 0, np.float32(np.inf), np.float32(-np.inf))
+    for k in range(3):
+        inter = np.where(np.abs(steps) > k, np.nextafter(inter, toward), inter)
+    special = np.array([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, 1e-45, 1e-38, 3e38],
+                       np.float32)
+    di, du = np.meshgrid(special, special)
+    inter = np.concatenate([inter, di.ravel(), special * np.float32(0.7)])
+    union = np.concatenate([union, du.ravel(), special])
+    return torch.from_numpy(inter.astype(np.float32)), torch.from_numpy(union.astype(np.float32))
+
+
+@pytest.mark.parametrize("thr", THRESHOLDS + (0.0, -0.5, 1e-40, 1.0, 3e6))
+def test_iou_exceeds_plain_equals_division(thr):
+    """The bitmask kernel's division-free test, mirrored on the CPU, against
+    ``inter / union > t`` in f32: 10^6 pairs within 3 ulps of the boundary,
+    the degenerate values (0, -0, negative, inf, NaN, subnormal), and
+    thresholds where the test's premises fail (0, negative, subnormal,
+    above 2^20), which take the division."""
+    rng = np.random.RandomState(17)
+    inter, union = _adversarial_pairs(rng, thr, 1_000_000)
+    got = nms_kernel.iou_exceeds_plain(inter, union, thr)
+    assert torch.equal(got, inter / union > thr)
+    if thr in THRESHOLDS:
+        assert 0.2 < got[:1_000_000].float().mean().item() < 0.8
+
+
+@pytest.mark.parametrize("thr", THRESHOLDS + (0.0, -0.5))
+def test_bitmask_rule_on_boxes_equals_suppression_matrix(thr):
+    """The kernel's decision as it runs per box, emulated in numpy f32: each
+    box carries h, or NaN when its area leaves [2 FLT_MIN / h, FLT_MAX / 4],
+    the test's intersection clamps w only, and a pair divides (with both
+    clamps) only where e == h u or a value is NaN. Held bit for bit against
+    the suppression matrix on the boundary set, random boxes, and
+    degenerate ones (zero, negative and huge areas, inf, NaN)."""
+    f32 = np.float32
+    rng = np.random.RandomState(5)
+    rnd = rng.rand(300, 4).astype(f32) * 50
+    rnd[:, 2:] += rnd[:, :2]
+    degenerate = np.array([[5, 5, 4, 3], [5, 5, 4, 3], [0, 0, 0, 0], [5, 5, 3, 8], [1, 1, -5, -5],
+                           [0, 0, 1e30, 1e30], [0, 0, 3e38, 3e38], [0, 0, np.inf, 5],
+                           [0, 0, np.nan, 3], [2, 2, 2, 2], [1e-30, 0, 2e-30, 0]], f32)
+    cases = [nms_kernel.boundary_boxes(1, 300, thr, seed=3)[0].numpy(), rnd,
+             np.concatenate([degenerate, rnd[:20], degenerate])]
+    t, h = nms_kernel.fast_test_constants(thr)
+    amin, amax = (f32(2) * np.finfo(f32).tiny / h, np.finfo(f32).max / f32(4)) \
+        if not np.isnan(h) else (f32(0), f32(0))
+    for b in cases:
+        with np.errstate(all="ignore"):
+            a = (b[:, 2] - b[:, 0] + f32(1)) * (b[:, 3] - b[:, 1] + f32(1))
+            hb = np.where((a >= amin) & (a <= amax), h, f32(np.nan)).astype(f32)
+            r, c = b[:, None, :], b[None, :, :]
+            w = np.minimum(r[..., 2], c[..., 2]) - np.maximum(r[..., 0], c[..., 0]) + f32(1)
+            hh = np.minimum(r[..., 3], c[..., 3]) - np.maximum(r[..., 1], c[..., 1]) + f32(1)
+            area_sum = a[:, None] + a[None, :]
+            inter = np.maximum(w, f32(0)) * hh
+            u = area_sum - inter
+            e = (inter.astype(np.float64) - np.float64(t) * u.astype(np.float64)).astype(f32)
+            hu = hb[None, :] * u
+            above = e > hu
+            unsure = (~(e < hu) & ~above) | np.isnan(hb)[:, None]
+            inter = np.maximum(w, f32(0)) * np.maximum(hh, f32(0))
+            got = np.where(unsure, inter / (area_sum - inter) > t, above)
+        n = len(b)
+        want = tnms.suppression_matrix(_t(b[None]), thr)[0].numpy()
+        np.testing.assert_array_equal(got & np.triu(np.ones((n, n), bool), 1), want)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 130])
+def test_pack_words_and_suppression_bitmask_plain(n):
+    """``pack_words`` gives the kernel's word layout (bit k of word w of row
+    i: box 64 w + k), and ``suppression_bitmask_plain`` packs the
+    suppression matrix, its words below the diagonal 0."""
+    rng = np.random.RandomState(n)
+    matrix = rng.rand(2, n, n) < 0.3
+    padded = np.zeros((2, n, -(-n // 64) * 64), bool)
+    padded[..., :n] = matrix
+    want = np.packbits(padded, axis=-1, bitorder="little").view(np.int64)
+    np.testing.assert_array_equal(nms_kernel.pack_words(torch.from_numpy(matrix)).numpy(), want)
+    boxes = _t(np.stack([random_boxes(rng, n) for _ in range(2)]))
+    words = nms_kernel.suppression_bitmask_plain(boxes, 0.5)
+    assert torch.equal(words, pack_words(tnms.suppression_matrix(boxes, 0.5), below=0))
+
+
 def test_nms_empty_and_grouped_shapes():
     keep_idx, keep_mask = tnms.nms(torch.zeros((2, 0, 4)), torch.zeros((2, 0)), 0.5)
     assert keep_idx.shape == (2, 0) and keep_mask.shape == (2, 0)
