@@ -16,14 +16,25 @@ one JSON line per phase as it goes:
    and B in bf16 also at ragged shapes (A: R = 1,000, E = 300, which the
    wrapper pads to 304; B: R = 1,000, V = 10,501, whose odd rows start off
    16-byte boundaries);
-3. ``agree``: a small f32 decode through the kernels on the GPU against the
-   same decode through the plain versions on the CPU;
+3. ``agree``: small f32 decodes on the GPU against the same decodes on the
+   CPU on shared seeded noise: ``decode_cbs`` with each of its four
+   selections (prehead and fused through the kernels, whose plain versions
+   run on the CPU; raw and logprob without a kernel), ``decode_beam``,
+   ``greedy_decode``, and the dense CBS over the packed FSM against
+   ``constrained_beam_search_fast`` (logprob) on the CPU on the reachable
+   states; each row reports the share of identical tokens and the largest
+   score difference where they are identical;
 4. ``decode``: the full-width Style-SeqCVAE CBS decode (BASELINE.json config
    3: V=10500, E=600, H=900, P=768, z=150, F=2048, 100 boxes, 20 steps, batch
    16 x 20 z-samples x 8 FSM states x beam 5, sentiment_vae 1, bf16) through
    ``DecodeHarness.decode_cbs`` once per selection, with each kernel's launch
-   count from that run;
-5. ``kernel`` rows for the detector's kernels at the full-width shapes of
+   count from that run, then ``decode_compare``: the share of identical best
+   captions for every pair of selections;
+5. ``beam``: ``DecodeHarness.decode_beam`` at config 3's widths (batch 16 x
+   20 z x beam 5, bf16); ``greedy``: BASELINE.json config 1 as bench.py
+   builds it (``greedy_decode`` on the log-prob step, batch 100, 20 steps,
+   bf16), one decode and 10 back to back with fresh noise;
+6. ``kernel`` rows for the detector's kernels at the full-width shapes of
    BASELINE.json config 5: RoIAlign on a (16, 38, 58, 1024) C4 map with 4,800
    RoIs in f32 and bf16, and NMS at the RPN's 16 x 6,000 boxes and the
    per-class 1,280 x 300, each against its plain version and timed the same way,
@@ -34,13 +45,13 @@ one JSON line per phase as it goes:
    against ``greedy_scan_plain`` on the same mask, and all three again on
    the boundary set (boxes whose IoUs sit at the threshold's rounding
    boundary) against the plain versions on the CPU;
-6. ``detect``: the full-width Faster R-CNN ResNet-101 (81 classes, 98
+7. ``detect``: the full-width Faster R-CNN ResNet-101 (81 classes, 98
    attributes, 12 anchors, 16 canvases of 608 x 928) through
    ``extract_device_features``, with RoIAlign's and NMS's launch counts;
-7. ``detect_agree``: the same forward stage by stage, each kernel's inputs
+8. ``detect_agree``: the same forward stage by stage, each kernel's inputs
    from the path copied to the CPU and run through the plain versions there,
    and each stage's device time on the card;
-8. ``e2e``: config 5 end to end, the detector's bf16 features fed to the
+9. ``e2e``: config 5 end to end, the detector's bf16 features fed to the
    full-width CBS decode (fused selection);
 
 then the ``{"kernels": [...]}`` summary, the card's name and power limit from
@@ -59,9 +70,24 @@ import time
 import numpy as np
 import torch
 
-from style_seqcvae_tpu_torch.decoding.cbs_fast import fsm_to_tables
+from style_seqcvae_tpu_torch.decoding.beam_search import greedy_decode
+from style_seqcvae_tpu_torch.decoding.cbs import constrained_beam_search
+from style_seqcvae_tpu_torch.decoding.cbs_fast import (
+    SELECTIONS,
+    constrained_beam_search_fast,
+    fsm_to_device,
+    fsm_to_tables,
+    stack_fsm_tables,
+)
+from style_seqcvae_tpu_torch.decoding.fsm import pack_fsm
 from style_seqcvae_tpu_torch.decoding.harness import DecodeHarness, pad_tables_batch
-from style_seqcvae_tpu_torch.models.captioner import CaptionerConfig, init_captioner
+from style_seqcvae_tpu_torch.models.captioner import (
+    CaptionerConfig,
+    init_captioner,
+    make_decode_context,
+    make_optimized_step_fn,
+)
+from style_seqcvae_tpu_torch.models.updown_cell import init_cell_state
 from style_seqcvae_tpu_torch.models.detector import defaults as det
 from style_seqcvae_tpu_torch.models.detector import resnet
 from style_seqcvae_tpu_torch.models.detector.extract import (
@@ -100,8 +126,16 @@ HBM_BYTES_PER_S = 3.35e12
 TOL = {"vocab_topk_lse": {"vals": 1e-3, "lse": 1e-3, "idx_agree": 0.999},
        "topk_lse": {"vals": 0.0, "lse": 1e-3, "idx_agree": 1.0}}
 # the small agreement decode: f32 on both sides, token-identical best
-# captions for nearly every (z, image); a near-tie may flip one
+# captions for nearly every (z, image); a near-tie may flip one. The
+# selections and decodes without a kernel (raw, logprob, beam, greedy, the
+# dense CBS) differ from the CPU only in how the step's products are summed,
+# so they must be identical on these seeded inputs.
 AGREE_MIN = 0.9
+AGREE_MIN_NO_KERNEL = 1.0
+AGREE_LP_TOL = 1e-3
+# config 1 (bench.py:243-323): greedy, batch 100, 10 decodes chained
+GREEDY_BATCH, GREEDY_CHAIN = 100, 10
+END_INDEX = CaptionerConfig(vocab_size=V).boundary_index
 
 # config 5's detector (bench.py:602-640): ResNet-101 C4, 81 classes, 98
 # attributes, anchor scales (4, 8, 16, 32) x ratios (0.5, 1, 2), RoIAlign,
@@ -355,77 +389,249 @@ def decode_setup(cfg: CaptionerConfig, batch: int, n_z: int, boxes: int, seed: i
     return feats, sentiment, pad_tables_batch(tables, n_z)
 
 
+def agree_row(path: str, got: torch.Tensor, want: torch.Tensor, lp_got, lp_want, need: float,
+              live=None, **extra) -> None:
+    """Emit the share of identical token rows (last axis) and the largest
+    score difference where they are identical; fail below ``need`` or above
+    AGREE_LP_TOL. ``live`` restricts both to the rows where it holds."""
+    got, want = got.cpu(), want.cpu()
+    same = (got == want).all(dim=-1)
+    live = torch.ones_like(same) if live is None else live.cpu()
+    frac = same[live].float().mean().item()
+    lp_err = None
+    if lp_got is not None and bool((same & live).any()):
+        lp_err = (lp_got.cpu() - lp_want.cpu())[same & live].abs().max().item()
+    emit({"phase": "agree", "path": path, "token_identical": frac, "rows": int(live.sum()),
+          "max_abs_err_lp_where_identical": lp_err, **extra})
+    if frac < need or (lp_err is not None and lp_err > AGREE_LP_TOL):
+        fail(f"GPU {path} disagrees with the CPU: {frac} identical (need {need}), "
+             f"lp error {lp_err}")
+
+
 def phase_agree(dev: torch.device) -> None:
-    """Small f32 decode: kernels on the GPU against plain versions on the CPU."""
+    """Small f32 decodes: the GPU against the CPU on shared seeded noise."""
     cfg = CaptionerConfig(vocab_size=700, image_feature_size=64, embedding_size=300,
                           hidden_size=48, attention_projection_size=32, z_space=16,
                           sentiment_vae=1, simple_vae=False, max_caption_length=10,
                           beam_size=BEAM)
     batch, n_z, boxes = 4, 3, 10
+    T = cfg.max_caption_length
     feats, sentiment, tables = decode_setup(cfg, batch, n_z, boxes, seed=2)
     noise = np.random.RandomState(3).randn(
-        n_z, cfg.max_caption_length, batch, STATES, BEAM, cfg.z_space).astype(np.float32)
+        n_z, T, batch, STATES, BEAM, cfg.z_space).astype(np.float32)
     params_cpu = init_captioner(cfg, seed=4, device="cpu")
     params_gpu = to_device(params_cpu, dev)
-    for selection in ("prehead", "fused"):
-        ref = DecodeHarness(params_cpu, cfg, device="cpu").decode_cbs(
-            feats, sentiment, None, tables, N_CONSTRAINTS, noise, n_z, selection=selection)
-        got = DecodeHarness(params_gpu, cfg, device=dev).decode_cbs(
-            feats, sentiment, None, tables, N_CONSTRAINTS, noise, n_z, selection=selection)
-        same = (got[0].cpu() == ref[0]).all(dim=-1)
-        frac = same.float().mean().item()
-        lp_err = (got[1].cpu() - ref[1])[same].abs().max().item()
-        emit({"phase": "agree", "selection": selection, "token_identical": frac,
-              "max_abs_err_lp_where_identical": lp_err})
-        if frac < AGREE_MIN or lp_err > 1e-3:
-            fail(f"GPU decode ({selection}) disagrees with the CPU reference: "
-                 f"{frac} identical, lp error {lp_err}")
+    cpu = DecodeHarness(params_cpu, cfg, device="cpu")
+    gpu = DecodeHarness(params_gpu, cfg, device=dev)
+    for selection in SELECTIONS:
+        args = (feats, sentiment, None, tables, N_CONSTRAINTS, noise, n_z)
+        ref = cpu.decode_cbs(*args, selection=selection)
+        got = gpu.decode_cbs(*args, selection=selection)
+        kernel = selection in ("prehead", "fused")
+        agree_row(f"decode_cbs/{selection}", got[0], ref[0], got[1], ref[1],
+                  AGREE_MIN if kernel else AGREE_MIN_NO_KERNEL, selection=selection)
+
+    beam_noise = noise[:, :, :, 0]                                  # (n_z, T, B, K, z)
+    ref = cpu.decode_beam(feats, sentiment, None, beam_noise, n_z)
+    got = gpu.decode_beam(feats, sentiment, None, beam_noise, n_z)
+    agree_row("decode_beam", got[0], ref[0], got[1], ref[1], AGREE_MIN_NO_KERNEL)
+
+    # greedy and the dense CBS on one z: (T, B, ...) noise rows
+    rows = torch.from_numpy(noise[0])                                # (T, B, S, K, z)
+    dense = [synthetic_fsm(np.random.RandomState(5 + b), cfg.vocab_size) for b in range(batch)]
+    packed = np.stack([pack_fsm(d) for d in dense])
+    fsm_cpu = fsm_to_device(stack_fsm_tables([fsm_to_tables(d) for d in dense]),
+                            torch.device("cpu"))
+    kw = dict(max_steps=T, beam_size=BEAM, per_node_beam_size=BEAM // 2,
+              end_index=cfg.boundary_index)
+    out = {}
+    for side, d, params in (("cpu", torch.device("cpu"), params_cpu), ("gpu", dev, params_gpu)):
+        ctx = make_decode_context(params, cfg, torch.from_numpy(feats).to(d),
+                                  sentiment=torch.from_numpy(sentiment).to(d))
+        step = make_optimized_step_fn(params, cfg, ctx)
+        start = torch.full((batch,), cfg.boundary_index, device=d)
+        st = init_cell_state((batch,), cfg.hidden_size, device=d)
+        with torch.inference_mode():
+            out[side] = {"greedy": greedy_decode(step, start, st, rows[:, :, 0, :1].to(d),
+                                                 max_steps=T, end_index=cfg.boundary_index)}
+            if side == "cpu":
+                out[side]["fast"] = constrained_beam_search_fast(
+                    step, start, st, fsm_cpu, rows, selection="logprob", **kw)
+            else:
+                out[side]["dense"] = constrained_beam_search(step, start, st, packed,
+                                                             rows.to(d), **kw)
+    agree_row("greedy_decode", out["gpu"]["greedy"], out["cpu"]["greedy"], None, None,
+              AGREE_MIN_NO_KERNEL)
+    (seqs, lp), (fseqs, flp) = out["gpu"]["dense"], out["cpu"]["fast"]
+    reach = flp > -1e18
+    agree_row("dense_cbs_vs_fast_logprob_on_cpu", seqs, fseqs, lp, flp, AGREE_MIN_NO_KERNEL,
+              live=reach, reachable_share=reach.float().mean().item())
+    if not torch.equal(lp.cpu() > -1e18, reach):
+        fail("the dense CBS on the GPU reaches other states than the fast CBS on the CPU")
+
+
+def frozen_after_end(tokens: torch.Tensor, live: torch.Tensor) -> bool:
+    """Live captions that emitted the end token emit nothing else after it."""
+    ended = (torch.cumsum((tokens == END_INDEX).int(), dim=-1) > 0) & live[..., None]
+    return bool((tokens[ended] == END_INDEX).all())
+
+
+def check_decode_output(name: str, best: torch.Tensor, best_lp, shape: list, counts: dict,
+                        expected: dict, row: dict) -> None:
+    """Shape, vocabulary range, finite scores, frozen ended captions and the
+    kernels' launch counts of a decode; emits ``row`` with them first."""
+    in_vocab = bool(((best >= 0) & (best < V)).all())
+    finite = True if best_lp is None else bool(torch.isfinite(best_lp).all())
+    live = torch.ones(best.shape[:-1], dtype=torch.bool, device=best.device) \
+        if best_lp is None else best_lp > -1e18
+    frozen = frozen_after_end(best, live)
+    emit({**row, "shape": list(best.shape), "launches": counts, "expected_launches": expected,
+          "in_vocab": in_vocab, "finite_scores": finite, "frozen_after_end": frozen,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if list(best.shape) != shape or not in_vocab or not finite or not frozen:
+        fail(f"{name} produced bad output")
+    if counts != expected:
+        fail(f"{name} launch counts {counts}, expected {expected}")
+
+
+def decode_cfg(**kw) -> CaptionerConfig:
+    """Config 3's model (bench.py:142-148), sentiment_vae 1."""
+    base = dict(vocab_size=V, image_feature_size=F, embedding_size=E, hidden_size=H,
+                attention_projection_size=P, z_space=Z, sentiment_vae=1, simple_vae=False,
+                max_caption_length=STEPS, beam_size=BEAM)
+    return CaptionerConfig(**{**base, **kw})
+
+
+def selection_counts() -> dict:
+    return {"vocab_topk_lse": vocab_topk_lse.launches, "topk_lse": topk_lse.launches}
+
+
+def reset_selection_counts() -> None:
+    vocab_topk_lse.launches = 0
+    topk_lse.launches = 0
 
 
 def phase_decode(dev: torch.device):
-    cfg = CaptionerConfig(vocab_size=V, image_feature_size=F, embedding_size=E,
-                          hidden_size=H, attention_projection_size=P, z_space=Z,
-                          sentiment_vae=1, simple_vae=False, max_caption_length=STEPS,
-                          beam_size=BEAM)
+    cfg = decode_cfg()
     params = init_captioner(cfg, seed=0, device=dev, dtype=torch.bfloat16)
     feats, sentiment, tables = decode_setup(cfg, BATCH, N_Z, BOXES, seed=0)
     harness = DecodeHarness(params, cfg, device=dev)
     launches, best_by_sel = {}, {}
-    for selection, name in (("prehead", "vocab_topk_lse"), ("fused", "topk_lse")):
+    kernel_of = {"prehead": "vocab_topk_lse", "fused": "topk_lse"}
+    for selection in SELECTIONS:
         noise = torch.Generator(device=dev).manual_seed(7)
-        vocab_topk_lse.launches = 0
-        topk_lse.launches = 0
+        reset_selection_counts()
         torch.cuda.synchronize()
         t0 = time.time()
         best, best_lp = harness.decode_cbs(feats, sentiment, None, tables, N_CONSTRAINTS,
                                            noise, N_Z, selection=selection)
         torch.cuda.synchronize()
         first_s = time.time() - t0
-        counts = {"vocab_topk_lse": vocab_topk_lse.launches, "topk_lse": topk_lse.launches}
+        counts = selection_counts()
         t0 = time.time()
         harness.decode_cbs(feats, sentiment, None, tables, N_CONSTRAINTS,
                            torch.Generator(device=dev).manual_seed(7), N_Z, selection=selection)
         torch.cuda.synchronize()
         warm_s = time.time() - t0
-        expected = {name: STEPS - 1}
-        expected.update({other: 0 for other in counts if other != name})
-        in_vocab = bool(((best >= 0) & (best < V)).all())
-        finite = bool(torch.isfinite(best_lp).all())
-        emit({"phase": "decode", "selection": selection, "shape": list(best.shape),
-              "launches": counts, "expected_launches": expected, "in_vocab": in_vocab,
-              "finite_scores": finite, "best_lp_min": best_lp.min().item(),
-              "first_run_s": first_s, "warm_run_s": warm_s,
-              "captions_per_s": BATCH * N_Z / warm_s,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-        if list(best.shape) != [N_Z, BATCH, STEPS] or not in_vocab or not finite:
-            fail(f"decode ({selection}) produced bad output")
-        if counts != expected:
-            fail(f"decode ({selection}) launch counts {counts}, expected {expected}")
-        launches[name] = counts[name]
+        expected = {name: STEPS - 1 if kernel_of.get(selection) == name else 0
+                    for name in counts}
+        check_decode_output(f"decode ({selection})", best, best_lp, [N_Z, BATCH, STEPS],
+                            counts, expected,
+                            {"phase": "decode", "selection": selection,
+                             "best_lp_min": best_lp.min().item(), "first_run_s": first_s,
+                             "warm_run_s": warm_s, "captions_per_s": BATCH * N_Z / warm_s})
+        if selection in kernel_of:
+            launches[kernel_of[selection]] = counts[kernel_of[selection]]
         best_by_sel[selection] = best
-    emit({"phase": "decode_compare", "prehead_vs_fused_identical":
-          (best_by_sel["prehead"] == best_by_sel["fused"]).all(dim=-1).float().mean().item()})
+
+    def identical(a, b):
+        return (best_by_sel[a] == best_by_sel[b]).all(dim=-1).float().mean().item()
+
+    # in bf16 only raw and fused rank the same rounded logits (kernel B
+    # against small_top_k on ties); prehead computes its logits in the
+    # kernel, logprob ranks the rounded log-probs
+    emit({"phase": "decode_compare",
+          "prehead_vs_fused_identical": identical("prehead", "fused"),
+          "identical": {f"{a}_vs_{b}": identical(a, b)
+                        for i, a in enumerate(SELECTIONS) for b in SELECTIONS[i + 1:]}})
     return launches, (harness, sentiment, tables)
+
+
+def phase_beam(dev: torch.device, decode_state) -> None:
+    """decode_beam at config 3's widths: 16 images x 20 z x beam 5, bf16."""
+    harness, sentiment, _ = decode_state
+    feats = np.random.RandomState(0).randn(BATCH, BOXES, F).astype(np.float32)
+    reset_selection_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    best, best_lp = harness.decode_beam(feats, sentiment, None,
+                                        torch.Generator(device=dev).manual_seed(8), N_Z)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    counts = selection_counts()
+    t0 = time.time()
+    harness.decode_beam(feats, sentiment, None, torch.Generator(device=dev).manual_seed(8), N_Z)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    check_decode_output("beam", best, best_lp, [N_Z, BATCH, STEPS], counts,
+                        {name: 0 for name in counts},
+                        {"phase": "beam", "batch": BATCH, "n_z": N_Z, "beam": BEAM,
+                         "best_lp_min": best_lp.min().item(), "first_run_s": first_s,
+                         "warm_run_s": warm_s, "captions_per_s": BATCH * N_Z / warm_s})
+
+
+def phase_greedy(dev: torch.device) -> None:
+    """BASELINE.json config 1 as bench.py:243-323 builds it: greedy_decode on
+    the optimized log-prob step, batch 100, 20 steps, bf16, beam 1. bench.py
+    chains its 10 decodes in one dispatch and reports batch x 10 over their
+    time: ``captions_per_s_chained`` (10 decodes back to back, one
+    synchronisation) is the number to hold against it."""
+    cfg = decode_cfg(beam_size=1)
+    params = init_captioner(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(0)
+    feats = torch.from_numpy(rng.randn(GREEDY_BATCH, BOXES, F).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    sentiment = torch.from_numpy(rng.choice([-1.0, 1.0], (GREEDY_BATCH, 1)).astype(
+        np.float32)).to(dev)
+    start = torch.full((GREEDY_BATCH,), cfg.boundary_index, device=dev)
+    st = init_cell_state((GREEDY_BATCH,), cfg.hidden_size, device=dev, dtype=torch.bfloat16)
+
+    def decode(gen):
+        with torch.inference_mode():
+            ctx = make_decode_context(params, cfg, feats, sentiment=sentiment)
+            step = make_optimized_step_fn(params, cfg, ctx)
+            return greedy_decode(step, start, st, gen, max_steps=STEPS,
+                                 end_index=cfg.boundary_index)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    reset_selection_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    toks = decode(gen)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    counts = selection_counts()
+    t0 = time.time()
+    decode(gen)
+    torch.cuda.synchronize()
+    one_s = time.time() - t0
+    t0 = time.time()
+    chained = [decode(gen) for _ in range(GREEDY_CHAIN)]
+    torch.cuda.synchronize()
+    chained_s = time.time() - t0
+    distinct = len({tuple(c.flatten().tolist()) for c in chained})
+    check_decode_output("greedy", torch.stack(chained), None,
+                        [GREEDY_CHAIN, GREEDY_BATCH, STEPS], counts,
+                        {name: 0 for name in counts},
+                        {"phase": "greedy", "batch": GREEDY_BATCH, "first_run_s": first_s,
+                         "one_decode_s": one_s,
+                         "captions_per_s_one_decode": GREEDY_BATCH / one_s,
+                         "chained_decodes": GREEDY_CHAIN, "chained_s": chained_s,
+                         "captions_per_s_chained": GREEDY_BATCH * GREEDY_CHAIN / chained_s,
+                         "comparable_to_bench": "captions_per_s_chained",
+                         "distinct_chained_outputs": distinct})
+    if toks.shape != (GREEDY_BATCH, STEPS):
+        fail(f"greedy: one decode gave {tuple(toks.shape)}")
 
 
 def seeded_rois(gen: torch.Generator, dev: torch.device) -> torch.Tensor:
@@ -797,6 +1003,8 @@ def main() -> int:
     rows = phase_kernels(k, dev)
     phase_agree(dev)
     launches, decode_state = phase_decode(dev)
+    phase_beam(dev, decode_state)
+    phase_greedy(dev)
     det_rows = phase_detector_kernels(dev)
     det_state = detector_setup(dev)
     launches.update(phase_detect(dev, det_state))

@@ -6,13 +6,21 @@ plus a few exception tokens (constraint wordforms) with explicit
 destinations. Each step therefore needs one vocabulary-wide selection per
 beam row: the unmasked top-(pnbs + E) and the row's logsumexp, from which
 the exceptions are filtered on tiny tensors (exact, since a state has at
-most E exception tokens). Two selections are ported:
+most E exception tokens). Four selections, one for each branch of the
+JAX search:
 
 * ``"prehead"``: the step returns the tied head's pre-embedding activation
-  (…, E) and :func:`matmul_top_k_with_lse` fuses the vocabulary matmul into
-  the selection, so the (rows, V) logits never exist;
+  (…, E) and :func:`matmul_top_k_with_lse` (kernel A) fuses the vocabulary
+  matmul into the selection, so the (rows, V) logits never exist;
 * ``"fused"``: the step returns raw logits and :func:`top_k_with_lse`
-  selects over them in one pass.
+  (kernel B) selects over them in one pass;
+* ``"raw"``: the JAX harness's route (``raw_step=True``): the exception
+  tokens are masked out of the raw logits with a static (B, S, V) mask, a
+  ``small_top_k`` picks the defaults and only the picked values get the
+  ``-logz`` correction;
+* ``"logprob"``: the step returns log-probs; ended beams are frozen before
+  the selection (``_cleaned_log_probs``), where the three raw-logit
+  selections freeze after it.
 
 The numpy FSM packers are copies of the JAX package's (``:39-118``).
 """
@@ -24,13 +32,20 @@ from typing import Callable, NamedTuple, Tuple, Union
 import numpy as np
 import torch
 
-from style_seqcvae_tpu_torch.decoding.beam_search import reconstruct_sequences
+from style_seqcvae_tpu_torch.decoding.beam_search import (
+    _cleaned_log_probs,
+    check_noise,
+    pick_beams,
+    reconstruct_sequences,
+)
 from style_seqcvae_tpu_torch.ops.kernels.topk_lse import top_k_with_lse
 from style_seqcvae_tpu_torch.ops.kernels.vocab_topk_lse import matmul_top_k_with_lse
 from style_seqcvae_tpu_torch.ops.topk import small_top_k, top_k
 
 MASK_VAL = -1e20
-SELECTIONS = ("prehead", "fused")
+SELECTIONS = ("prehead", "fused", "raw", "logprob")
+# the selections whose step returns ((logits, logz), state)
+RAW_SELECTIONS = ("fused", "raw")
 
 
 class FSMTables(NamedTuple):
@@ -125,18 +140,21 @@ def constrained_beam_search_fast(
     """Returns (sequences (B, S, K, T), log-probs (B, S, K)).
 
     ``selection="prehead"``: ``step_fn`` returns the (…, E) pre-embedding
-    activation and ``embedding`` (V, E) is the tied table. ``"fused"``:
-    ``step_fn`` returns ``((logits, logz), state)``. ``noise`` rows are handed
-    to the step as its z-noise (row t at step t); a ``torch.Generator`` is
-    handed on as it is, and the step draws from it. End tokens freeze after
-    selection (the end token is never a constraint wordform)."""
+    activation and ``embedding`` (V, E) is the tied table. ``"fused"`` and
+    ``"raw"``: ``step_fn`` returns ``((logits, logz), state)``.
+    ``"logprob"``: it returns ``(log_probs, state)``. ``noise`` rows are
+    handed to the step as its z-noise (row t at step t; row 0 cut to
+    ``[:, :1, :1]``); a ``torch.Generator`` is handed on as it is, and the
+    step draws from it. The raw-logit selections freeze ended beams after
+    the selection (valid because the end token is never a constraint
+    wordform, so it always takes the default transition), ``"logprob"``
+    before it."""
     if selection not in SELECTIONS:
         raise ValueError(f"selection must be one of {SELECTIONS}, got {selection!r}")
     if selection == "prehead" and embedding is None:
         raise ValueError("prehead selection needs the tied embedding table (V, E)")
+    check_noise(noise, max_steps, start_tokens.device)
     from_tensor = torch.is_tensor(noise)
-    if from_tensor and noise.shape[0] != max_steps:
-        raise ValueError(f"noise must have max_steps={max_steps} rows, got {noise.shape[0]}")
     B, S = fsm.default_dest.shape
     E = fsm.exc_token.shape[-1]
     K = beam_size
@@ -154,9 +172,11 @@ def constrained_beam_search_fast(
         # B rows only: the (B, V) logits are cheap to materialise here
         logits0 = torch.matmul(out0[:, 0, 0, :].float(), embedding.float().T)
         lp0 = logits0 - torch.logsumexp(logits0, dim=-1, keepdim=True)
-    else:
+    elif selection in RAW_SELECTIONS:
         logits0, logz0 = out0
         lp0 = logits0[:, 0, 0, :].float() - logz0[:, 0, 0, None]
+    else:
+        lp0 = out0[:, 0, 0, :]
     V = lp0.shape[-1]
 
     # additive scatter, then > 0: a padding entry (token 0, valid False) and a
@@ -193,6 +213,14 @@ def constrained_beam_search_fast(
                    * fsm.exc_valid[..., None].float())                   # (B, S, E, Ed)
     exc_tok_k = fsm.exc_token[:, :, None, :].expand(B, S, K, E)
     k_tot = pnbs + E
+    if selection in ("raw", "logprob"):
+        # static per-state exception mask over the vocabulary, by the same
+        # additive scatter as exc_mask0
+        exc_vocab_mask = torch.zeros((B, S, V), dtype=torch.int32, device=dev)
+        exc_vocab_mask.index_put_((bidx[:, None, None].expand(B, S, E),
+                                   states[None, :, None].expand(B, S, E), fsm.exc_token),
+                                  fsm.exc_valid.to(torch.int32), accumulate=True)
+        exc_vocab_mask = (exc_vocab_mask > 0)[:, :, None, :]              # (B, S, 1, V)
 
     def default_from_topk(tvals, tidx, logz):
         """Drop exception tokens from an unmasked top-(pnbs + E); exact,
@@ -209,20 +237,39 @@ def constrained_beam_search_fast(
             tvals, tidx, lse = matmul_top_k_with_lse(
                 proj.reshape(B * S * K, -1).contiguous(), embedding, k_tot)
             exc_l = torch.matmul(proj.float(), exc_emb.transpose(-1, -2))  # (B, S, K, E)
-        else:
+        elif selection == "fused":
             logits, _ = out
             tvals, tidx, lse = top_k_with_lse(logits.reshape(B * S * K, V).contiguous(), k_tot)
             exc_l = torch.gather(logits, -1, exc_tok_k).float()
-        logz = lse.reshape(B, S, K)
-        def_lp, def_cls = default_from_topk(tvals.reshape(B, S, K, k_tot),
-                                            tidx.reshape(B, S, K, k_tot).long(), logz)
-        exc_lp = torch.where(fsm.exc_valid[:, :, None, :], exc_l - logz[..., None], mask_val)
+        if selection in ("prehead", "fused"):
+            logz = lse.reshape(B, S, K)
+            def_lp, def_cls = default_from_topk(tvals.reshape(B, S, K, k_tot),
+                                                tidx.reshape(B, S, K, k_tot).long(), logz)
+            exc_lp = torch.where(fsm.exc_valid[:, :, None, :], exc_l - logz[..., None],
+                                 mask_val)
+        elif selection == "raw":
+            logits, logz = out
+            def_l, def_cls = small_top_k(torch.where(exc_vocab_mask, mask_val, logits), pnbs)
+            def_lp = def_l.float() - logz[..., None]
+            # JAX takes the exception logits by a one-hot einsum, because a
+            # gather along the lanes is slow on a TPU; the gather returns
+            # the same values
+            exc_l = torch.gather(logits, -1, exc_tok_k).float()
+            exc_lp = torch.where(fsm.exc_valid[:, :, None, :], exc_l - logz[..., None],
+                                 mask_val)
+        else:
+            cleaned = _cleaned_log_probs(out, last_preds, end_index)
+            def_lp, def_cls = small_top_k(torch.where(exc_vocab_mask, mask_val, cleaned), pnbs)
+            exc_lp = torch.where(fsm.exc_valid[:, :, None, :],
+                                 torch.gather(cleaned, -1, exc_tok_k), mask_val)
 
-        # end freezing: ended beams emit end with log-prob 0
-        ended = (last_preds == end_index)[..., None]
-        def_lp = torch.where(ended, end_pattern, def_lp)
-        def_cls = torch.where(ended, torch.full_like(def_cls, end_index), def_cls)
-        exc_lp = torch.where(ended, mask_val, exc_lp)
+        if selection != "logprob":
+            # end freezing after the selection: ended beams emit end with
+            # log-prob 0 (the log-prob branch froze them before it)
+            ended = (last_preds == end_index)[..., None]
+            def_lp = torch.where(ended, end_pattern, def_lp)
+            def_cls = torch.where(ended, torch.full_like(def_cls, end_index), def_cls)
+            exc_lp = torch.where(ended, mask_val, exc_lp)
 
         # candidates per (target state, source state, beam), on tiny tensors
         dmask = fsm.default_dest[:, None, :] == states[None, :, None]       # (B, S_to, S_from)
@@ -239,14 +286,8 @@ def constrained_beam_search_fast(
         new_lp, idx = top_k(summed.reshape(B, S, S * K * pnbs), K)         # (B, S_to, K)
         new_preds = torch.gather(top_cls.reshape(B, S, S * K * pnbs), 2, idx)
         backptr = torch.div(idx, pnbs, rounding_mode="floor").reshape(B, S * K)
-
-        def pick(x):
-            rest = tuple(x.shape[3:])
-            flat = x.reshape((B, S * K) + rest)
-            ind = backptr.reshape((B, S * K) + (1,) * len(rest)).expand((B, S * K) + rest)
-            return torch.gather(flat, 1, ind).reshape((B, S, K) + rest)
-
-        state = _map_state(pick, new_state)
+        state = _map_state(lambda x: pick_beams(x.reshape((B, S * K) + tuple(x.shape[3:])),
+                                                backptr).reshape(x.shape), new_state)
         last_preds, last_lp = new_preds, new_lp
         preds_t.append(new_preds.reshape(B, S * K))
         bp_t.append(backptr)

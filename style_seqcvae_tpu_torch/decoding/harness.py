@@ -1,9 +1,9 @@
-"""Diverse CBS decoding: n_z z-samples × constrained beam search over a batch
+"""Diverse decoding: n_z z-samples × (constrained) beam search over a batch
 of images (counterpart of ``style_seqcvae_tpu/decoding/harness.py``).
 
 The JAX harness vmaps the search over z. Here z is a batch dimension written
 out: the search runs on B·n_z rows ordered image-major (row b·n_z + z), so a
-view turns them into the (B, n_z, S, K) grid the step expects, and the image
+view turns them into the (B, n_z, ...) grid the step expects, and the image
 features stay (B, N, F), never replicated per z or beam.
 """
 
@@ -14,7 +14,9 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from style_seqcvae_tpu_torch.decoding.beam_search import beam_search
 from style_seqcvae_tpu_torch.decoding.cbs_fast import (
+    RAW_SELECTIONS,
     FSMTables,
     constrained_beam_search_fast,
     fsm_to_device,
@@ -78,12 +80,66 @@ class DecodeHarness:
         self.params = params
         self.cfg = cfg
 
+    def _grid_step(self, feats, sentiment, obj_att_embeds, n_z: int, **contract):
+        """The optimized step with the requested return contract, taking and
+        returning image-major rows (B·n_z, ...): a view splits them into the
+        (B, n_z, ...) grid the step broadcasts the image features over."""
+        ctx = make_decode_context(self.params, self.cfg, feats, sentiment=sentiment,
+                                  obj_att_embeds=obj_att_embeds)
+        step = make_optimized_step_fn(self.params, self.cfg, ctx, **contract)
+        B = feats.shape[0]
+
+        def split(t):
+            return t.reshape((B, n_z) + tuple(t.shape[1:]))
+
+        def merge(t):
+            return t.reshape((B * n_z,) + tuple(t.shape[2:]))
+
+        def grid_step(tokens, state, eps):
+            out, new_state = step(split(tokens), type(state)(*map(split, state)),
+                                  eps if isinstance(eps, torch.Generator) else split(eps))
+            out = tuple(map(merge, out)) if isinstance(out, tuple) else merge(out)
+            return out, type(new_state)(*map(merge, new_state))
+
+        return grid_step
+
+    def _inputs(self, feats, sentiment, obj_att_embeds):
+        dtype = self.params["embedding"].dtype
+        return (as_tensor(feats, self.device, dtype), as_tensor(sentiment, self.device),
+                as_tensor(obj_att_embeds, self.device, dtype))
+
+    def _noise_rows(self, noise, n_z: int, B: int, inner: Tuple[int, ...]):
+        """z-noise in the layout (n_z, max_steps, B, *inner, z) → (max_steps,
+        B·n_z, *inner, z), image-major rows; a generator passes through (the
+        search checks its device)."""
+        if isinstance(noise, torch.Generator):
+            return noise
+        noise = as_tensor(noise, self.device)
+        T, z = self.cfg.max_caption_length, self.cfg.z_space
+        if (not noise.is_floating_point() or noise.dim() != 4 + len(inner)
+                or tuple(noise.shape[:3]) != (n_z, T, B) or noise.shape[-1] != z
+                or any(d not in (1, k) for d, k in zip(noise.shape[3:-1], inner))):
+            raise ValueError(f"noise must be floating ({n_z}, {T}, {B}, "
+                             f"{', '.join(f'{k} or 1' for k in inner)}, {z}), got "
+                             f"{noise.dtype} {tuple(noise.shape)}")
+        # (n_z, T, B, ...) → (T, B, n_z, ...) → (T, B·n_z, ...)
+        noise = noise.float().permute(1, 2, 0, *range(3, noise.dim()))
+        return noise.reshape((T, B * n_z) + tuple(noise.shape[3:]))
+
+    @staticmethod
+    def _z_major(t: torch.Tensor, B: int, n_z: int) -> torch.Tensor:
+        """(B·n_z, ...) image-major rows → (n_z, B, ...)."""
+        return t.reshape((B, n_z) + tuple(t.shape[1:])).transpose(0, 1)
+
     @torch.inference_mode()
     def decode_cbs(self, feats, sentiment, obj_att_embeds, tables, num_constraints,
                    noise: Union[np.ndarray, torch.Tensor, torch.Generator], n_z: int,
                    selection: str = "prehead", return_all: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``selection``: "prehead" (kernel A) or "fused" (kernel B).
+        """``selection``: "prehead" (kernel A), "fused" (kernel B), "raw" or
+        "logprob" (no kernel). ``"raw"`` is the JAX harness's own route: its
+        ``decode_cbs`` always asks the step for raw logits and selects with
+        ``small_top_k`` over them (``raw_step=True``, neither kernel).
         feats (B, N, F); sentiment (B, 1) or None; obj_att_embeds (B, N, z)
         or None; ``tables`` is per-z ``List[FSMTables]`` (B = 1), per-image
         ``List[List[FSMTables]]`` or an already padded (n_z, B, S[, E])
@@ -95,11 +151,8 @@ class DecodeHarness:
         Returns (best (n_z, B, T), best_lp (n_z, B)), or all beams
         ((n_z, B, S, K, T), (n_z, B, S, K)) with ``return_all``."""
         cfg, dev = self.cfg, self.device
-        dtype = self.params["embedding"].dtype
-        feats = as_tensor(feats, dev, dtype)
+        feats, sentiment, obj_att_embeds = self._inputs(feats, sentiment, obj_att_embeds)
         B = feats.shape[0]
-        sentiment = as_tensor(sentiment, dev)
-        obj_att_embeds = as_tensor(obj_att_embeds, dev, dtype)
         if isinstance(tables, FSMTables):
             stacked = tables
         elif tables and isinstance(tables[0], FSMTables):
@@ -119,46 +172,47 @@ class DecodeHarness:
         nc = torch.as_tensor(np.repeat(nc[:1], B) if nc.size < B else nc[:B], device=dev)
 
         prehead = selection == "prehead"
-        ctx = make_decode_context(self.params, cfg, feats, sentiment=sentiment,
-                                  obj_att_embeds=obj_att_embeds)
-        step = make_optimized_step_fn(self.params, cfg, ctx, return_raw=not prehead,
-                                      return_prehead=prehead)
-
-        def grid_step(tokens, state, eps):
-            # rows b·Z + z → the (B, Z, ...) grid the step broadcasts over
-            def split(t):
-                return t.reshape((B, Z) + tuple(t.shape[1:]))
-
-            def merge(t):
-                return t.reshape((B * Z,) + tuple(t.shape[2:]))
-
-            out, new_state = step(split(tokens), type(state)(*map(split, state)),
-                                  eps if isinstance(eps, torch.Generator) else split(eps))
-            out = tuple(map(merge, out)) if isinstance(out, tuple) else merge(out)
-            return out, type(new_state)(*map(merge, new_state))
-
-        if not isinstance(noise, torch.Generator):
-            noise = as_tensor(noise, dev, torch.float32)
-            if noise.shape[:3] != (Z, cfg.max_caption_length, B):
-                raise ValueError(f"noise must be (n_z, max_steps, B, S, K, z), got "
-                                 f"{tuple(noise.shape)}")
-            # (Z, T, B, S, K, z) → (T, B·Z, S, K, z), image-major rows
-            noise = noise.permute(1, 2, 0, 3, 4, 5).reshape(
-                (noise.shape[1], B * Z) + tuple(noise.shape[3:]))
-
+        grid_step = self._grid_step(feats, sentiment, obj_att_embeds, Z,
+                                    return_raw=selection in RAW_SELECTIONS,
+                                    return_prehead=prehead)
+        noise = self._noise_rows(noise, Z, B, (fsm.default_dest.shape[1], cfg.beam_size))
         start = torch.full((B * Z,), cfg.boundary_index, dtype=torch.long, device=dev)
-        init_state = init_cell_state((B * Z,), cfg.hidden_size, device=dev, dtype=dtype)
+        init_state = init_cell_state((B * Z,), cfg.hidden_size, device=dev, dtype=feats.dtype)
         seqs, lp = constrained_beam_search_fast(
             grid_step, start, init_state, fsm, noise,
             max_steps=cfg.max_caption_length, beam_size=cfg.beam_size,
             per_node_beam_size=cfg.beam_size // 2, end_index=cfg.boundary_index,
             selection=selection, embedding=self.params["embedding"] if prehead else None)
 
-        def z_major(t):  # (B·Z, ...) → (Z, B, ...)
-            return t.reshape((B, Z) + tuple(t.shape[1:])).transpose(0, 1)
-
         if return_all:
-            return z_major(seqs), z_major(lp)
+            return self._z_major(seqs, B, Z), self._z_major(lp, B, Z)
         best, best_lp = select_best_beam_simple(seqs, lp, nc.repeat_interleave(Z),
                                                 cfg.min_constraints_to_satisfy)
-        return z_major(best), z_major(best_lp)
+        return self._z_major(best, B, Z), self._z_major(best_lp, B, Z)
+
+    @torch.inference_mode()
+    def decode_beam(self, feats, sentiment, obj_att_embeds,
+                    noise: Union[np.ndarray, torch.Tensor, torch.Generator], n_z: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """n_z z-samples × plain beam search (beam ``cfg.beam_size``, per-node
+        beam ``beam_size // 2``) through the optimized step's log-prob
+        contract, as the JAX harness's ``decode_beam``. feats (B, N, F);
+        sentiment (B, 1) or None; obj_att_embeds (B, N, z) or None.
+        ``noise``: (n_z, max_steps, B, K, z) or (n_z, max_steps, B, 1, z)
+        z-noise, row 0 of each z cut to its first beam (see
+        ``beam_search``), or a ``torch.Generator`` on the decode device.
+
+        Returns the top beam of each (z, image): (seqs (n_z, B, T),
+        lp (n_z, B))."""
+        cfg, dev = self.cfg, self.device
+        feats, sentiment, obj_att_embeds = self._inputs(feats, sentiment, obj_att_embeds)
+        B = feats.shape[0]
+        grid_step = self._grid_step(feats, sentiment, obj_att_embeds, n_z)
+        noise = self._noise_rows(noise, n_z, B, (cfg.beam_size,))
+        start = torch.full((B * n_z,), cfg.boundary_index, dtype=torch.long, device=dev)
+        init_state = init_cell_state((B * n_z,), cfg.hidden_size, device=dev, dtype=feats.dtype)
+        seqs, lp = beam_search(grid_step, start, init_state, noise,
+                               max_steps=cfg.max_caption_length, beam_size=cfg.beam_size,
+                               per_node_beam_size=cfg.beam_size // 2,
+                               end_index=cfg.boundary_index)
+        return self._z_major(seqs[:, 0, :], B, n_z), self._z_major(lp[:, 0], B, n_z)

@@ -27,6 +27,7 @@ from style_seqcvae_tpu_torch.models.attention import (
 from style_seqcvae_tpu_torch.models.updown_cell import (
     CellState,
     _attend,
+    cell_step,
     condition_size,
     image_feature_stats,
     init_cell,
@@ -140,6 +141,37 @@ def make_decode_context(params: Dict[str, Any], cfg: CaptionerConfig,
                                        image_features.device)
     return DecodeContext(image_features, proj_feats, avg_feats, feats_mask,
                          prior_mean, prior_var, sentiment, obj_att_embeds)
+
+
+def make_step_fn(params: Dict[str, Any], cfg: CaptionerConfig, ctx: DecodeContext,
+                 return_raw: bool = False):
+    """The unfolded decode step: the token's embedding through
+    :func:`cell_step` and the output head.
+
+    ``step(tokens, state, noise) -> (log_probs, new_state)`` on tokens of
+    shape (B, ...) with any inner grid dims; ``noise`` is the z-noise slice
+    (a float tensor broadcastable to grid + (z,)) or a ``torch.Generator``.
+    With ``return_raw`` the step returns ``((logits, logz), new_state)``,
+    ``log_probs = logits - logz[..., None]``."""
+
+    def step(tokens: torch.Tensor, state: CellState, noise):
+        h_dec, new_state, _, _, _, _ = cell_step(
+            params["cell"], params["embedding"][tokens], state,
+            image_features=ctx.image_features,
+            projected_image_features=ctx.projected_image_features,
+            averaged_image_features=ctx.averaged_image_features,
+            image_features_mask=ctx.image_features_mask,
+            training=False, rng=noise,
+            sentiment_vae=cfg.sentiment_vae, simple_vae=cfg.simple_vae,
+            latent_embedding=cfg.latent_embedding,
+            sentiment=ctx.sentiment, obj_att_embeds=ctx.obj_att_embeds,
+            prior_mean=ctx.prior_mean, prior_var=ctx.prior_var)
+        logits = output_logits(params, cfg, h_dec)
+        if return_raw:
+            return (logits, torch.logsumexp(logits.float(), dim=-1)), new_state
+        return torch.log_softmax(logits, dim=-1), new_state
+
+    return step
 
 
 def make_optimized_step_fn(params: Dict[str, Any], cfg: CaptionerConfig,

@@ -1,15 +1,20 @@
-"""Variational UpDown cell: parameters, state and the per-decode helpers
-(counterpart of ``style_seqcvae_tpu/models/updown_cell.py``). The inference
-step itself lives in :func:`captioner.make_optimized_step_fn`."""
+"""Variational UpDown cell: parameters, state, the per-decode helpers and the
+unfolded inference step :func:`cell_step` (counterpart of
+``style_seqcvae_tpu/models/updown_cell.py``). The decodes run the folded
+step, :func:`captioner.make_optimized_step_fn`."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from style_seqcvae_tpu_torch.models.attention import AttentionParams, init_attention
-from style_seqcvae_tpu_torch.ops.lstm import LSTMCellParams, init_lstm_cell
+from style_seqcvae_tpu_torch.models.attention import (
+    AttentionParams,
+    attention_weights,
+    init_attention,
+)
+from style_seqcvae_tpu_torch.ops.lstm import LSTMCellParams, init_lstm_cell, lstm_cell
 from style_seqcvae_tpu_torch.ops.masked import masked_mean
 
 
@@ -91,3 +96,86 @@ def image_feature_stats(image_features: torch.Tensor) -> Tuple[torch.Tensor, tor
     mask = image_features.abs().sum(dim=-1) > 0
     avg = masked_mean(image_features, mask[..., None], dim=-2)
     return avg, mask
+
+
+def cell_step(
+    params: CellParams,
+    token_embedding: torch.Tensor,          # (B, ..., E)
+    state: CellState,                       # each (B, ..., H)
+    *,
+    image_features: torch.Tensor,           # (B, N, F)
+    projected_image_features: torch.Tensor, # (B, N, P)
+    averaged_image_features: torch.Tensor,  # (B, F)
+    image_features_mask: torch.Tensor,      # (B, N)
+    training: bool,
+    rng: Optional[Union[torch.Generator, torch.Tensor]],
+    sentiment_vae: int,
+    simple_vae: bool,
+    latent_embedding: str,
+    sentiment: Optional[torch.Tensor] = None,       # (B, 1)
+    obj_att_embeds: Optional[torch.Tensor] = None,  # (B, N, z), mode 2
+    prior_mean: Optional[torch.Tensor] = None,      # (B, z) or broadcastable
+    prior_var: Optional[torch.Tensor] = None,       # (B, z) or broadcastable
+    eps: Optional[torch.Tensor] = None,             # z-noise
+):
+    """One step of the cell with z drawn from the prior (the inference
+    branch). Returns ``(h_dec, new_state, q_mean, q_log_var, prior_mean,
+    attn_w)``, ``q_*`` being the prior z was drawn from.
+
+    The z-noise is ``eps`` when given, else ``rng`` when it is a floating
+    tensor (the searches thread their noise rows through that slot), else a
+    draw from the ``torch.Generator`` ``rng``. Inputs are concatenated in
+    the token embedding's dtype."""
+    if training:
+        raise NotImplementedError("cell_step(training=True), the posterior branch, is not "
+                                  "ported yet (ROADMAP A6, captioner training)")
+    grid = tuple(token_embedding.shape[:-1])
+    extra = len(grid) - 1
+    dtype = token_embedding.dtype
+
+    def bcast(x):  # (B, D) → (B, 1..., D) for the inner grid dims
+        return x.reshape((x.shape[0],) + (1,) * extra + tuple(x.shape[1:]))
+
+    def cat(parts):
+        return torch.cat([p.to(dtype).expand(grid + (p.shape[-1],)) for p in parts], dim=-1)
+
+    attn_in = cat([token_embedding, bcast(averaged_image_features), state.h1, state.h_dec])
+    h1, c1 = lstm_cell(params.attention_lstm, attn_in, state.h1, state.c1)
+    attn_w = attention_weights(params.attention, h1, projected_image_features,
+                               image_features_mask)
+    attended = _attend(attn_w, image_features)
+
+    if sentiment_vae == 2 and obj_att_embeds is not None:
+        prior_mean = _attend(attn_w, obj_att_embeds)
+    else:
+        prior_mean = bcast(prior_mean).expand(grid + tuple(prior_mean.shape[-1:]))
+    if simple_vae:
+        prior_mean = torch.zeros_like(prior_mean)
+    var = bcast(prior_var).expand(prior_mean.shape)
+
+    cond = condition_size(sentiment_vae, simple_vae, latent_embedding, prior_mean.shape[-1])
+    if cond == 0:
+        c = None
+    elif latent_embedding == "senti_word_net" and sentiment_vae == 2:
+        c = prior_mean[..., 0:1]
+    elif sentiment_vae == 1:
+        c = bcast(sentiment)
+    else:  # mode 2, glove conditioning
+        c = prior_mean
+
+    mean = prior_mean
+    if eps is None and torch.is_tensor(rng) and rng.is_floating_point():
+        eps = rng
+    if eps is not None:
+        eps = eps.to(mean.dtype).expand(mean.shape)
+    elif isinstance(rng, torch.Generator):
+        eps = torch.randn(mean.shape, generator=rng, device=mean.device, dtype=mean.dtype)
+    else:
+        raise TypeError("cell_step needs eps, a floating rng tensor or a torch.Generator")
+    z = eps * torch.sqrt(var) + mean
+
+    dec_in = cat([attended, h1, state.h_dec] + ([c] if c is not None else []) + [z])
+    h_dec, c_dec = lstm_cell(params.decoder_lstm, dec_in, state.h_dec, state.c_dec)
+    new_state = CellState(h1=h1, c1=c1, h_enc=state.h_enc, c_enc=state.c_enc,
+                          h_dec=h_dec, c_dec=c_dec)
+    return h_dec, new_state, mean, torch.log(var), prior_mean, attn_w

@@ -3,11 +3,13 @@ same weights (carried over by ``from_jax_params``), same z-noise, same FSM
 tables, f32 on the CPU.
 
 The JAX side is built as ``bench.py`` builds its CBS program: the optimized
-step with the prehead or raw contract, ``constrained_beam_search_fast``
-vmapped over z with precomputed noise, then ``select_best_beam_simple_jax``.
-Its Pallas kernels run in interpret mode, as the JAX package's own tests run
-them on the CPU.
+step with the prehead, raw or log-prob contract,
+``constrained_beam_search_fast`` vmapped over z with precomputed noise,
+then ``select_best_beam_simple_jax``. Its Pallas kernels run in interpret
+mode, as the JAX package's own tests run them on the CPU.
 """
+
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -77,17 +79,21 @@ def _inputs(seed=0, batch=B):
     return feats, sentiment, tables, noise
 
 
-def _jax_decode(params, jcfg, feats, sentiment, stacked, noise, selection, nc=None):
+def _jax_decode(params, jcfg, feats, sentiment, stacked, noise, selection, nc=None, oae=None,
+                return_all=False):
     """``nc``: the (B,) constraint counts handed to the selection (3 each
-    by default)."""
+    by default); ``oae``: mode 2's (B, N, z) attribute embeddings;
+    ``return_all``: every (state, beam), without the selection."""
     prehead = selection == "prehead"
+    raw = selection in ("fused", "raw")
     B = feats.shape[0]
     nc = jnp.full((B,), 3) if nc is None else jnp.asarray(nc)
 
     @jax.jit
-    def run(params, feats, sentiment, tables, noise, nc):
-        ctx = jcap.make_decode_context(params, jcfg, feats, sentiment=sentiment)
-        step = jcap.make_optimized_step_fn(params, jcfg, ctx, return_raw=not prehead,
+    def run(params, feats, sentiment, oae, tables, noise, nc):
+        ctx = jcap.make_decode_context(params, jcfg, feats, sentiment=sentiment,
+                                       obj_att_embeds=oae)
+        step = jcap.make_optimized_step_fn(params, jcfg, ctx, return_raw=raw,
                                            return_prehead=prehead)
         init_state = j_init_state((B,), jcfg.hidden_size, jnp.float32)
         start = jnp.full((B,), jcfg.boundary_index)
@@ -96,16 +102,18 @@ def _jax_decode(params, jcfg, feats, sentiment, stacked, noise, selection, nc=No
             seqs, lp = jcbs.constrained_beam_search_fast(
                 step, start, init_state, fsm_z, jax.random.PRNGKey(0),
                 max_steps=T, beam_size=BEAM, per_node_beam_size=BEAM // 2,
-                end_index=jcfg.boundary_index, raw_step=not prehead,
+                end_index=jcfg.boundary_index, raw_step=raw,
                 prehead_step=prehead, noise=noise_z,
                 embedding=params["embedding"] if prehead else None,
                 fused_vocab_topk=(selection == "fused") or None)
+            if return_all:
+                return seqs, lp
             return select_best_beam_simple_jax(seqs, lp, nc, jcfg.min_constraints_to_satisfy)
 
         return jax.vmap(one_z)(noise, tables)
 
-    best, lp = run(params, jnp.asarray(feats), jnp.asarray(sentiment), stacked,
-                   jnp.asarray(noise), nc)
+    best, lp = run(params, jnp.asarray(feats), jnp.asarray(sentiment),
+                   None if oae is None else jnp.asarray(oae), stacked, jnp.asarray(noise), nc)
     return np.asarray(best), np.asarray(lp)
 
 
@@ -125,7 +133,7 @@ def test_fsm_packers_match_reference():
         np.testing.assert_array_equal(np.asarray(a), b)
 
 
-@pytest.mark.parametrize("selection", ["prehead", "fused"])
+@pytest.mark.parametrize("selection", ["prehead", "fused", "raw", "logprob"])
 def test_decode_cbs_matches_jax(selection):
     jcfg, tcfg = _cfg()
     params = jcap.init_captioner(jax.random.PRNGKey(0), jcfg)
@@ -154,6 +162,90 @@ def test_decode_cbs_matches_jax(selection):
     assert np.isfinite(ref_lp).all()
     ended = (ref_best == jcfg.boundary_index).any(axis=-1)
     assert ended.any()
+
+
+@pytest.mark.parametrize("selection", ["raw", "logprob"])
+def test_decode_cbs_all_beams_match_jax(selection):
+    """Every (z, image, state, beam), the unreachable ones too: where a state
+    has fewer live candidates than beams, the beams it keeps depend on how
+    ended beams' candidates were masked (before or after the selection)."""
+    jcfg, tcfg = _cfg()
+    params = jcap.init_captioner(jax.random.PRNGKey(9), jcfg)
+    direction = jnp.tanh(params["output_projection"]["b"])
+    direction = direction / jnp.sum(direction ** 2)
+    params["embedding"] = params["embedding"].at[jcfg.boundary_index].set(
+        END_LOGIT * direction)
+    feats, sentiment, tables, noise = _inputs(10)
+    stacked = jharness.pad_tables_batch(tables, NZ)
+    ref_seqs, ref_lp = _jax_decode(params, jcfg, feats, sentiment, stacked, noise, selection,
+                                   return_all=True)
+    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, params), device="cpu")
+    seqs, lp = DecodeHarness(tparams, tcfg, device="cpu").decode_cbs(
+        feats, sentiment, None, tables, 3, noise, NZ, selection=selection, return_all=True)
+    np.testing.assert_array_equal(seqs.numpy(), ref_seqs)
+    np.testing.assert_allclose(lp.numpy(), ref_lp, atol=SCORE_ATOL, rtol=0)
+
+
+class _Carry(NamedTuple):
+    h: object
+
+
+@pytest.mark.parametrize("selection", ["raw", "logprob"])
+def test_search_freezes_ended_beams_as_jax(selection):
+    """A fixed step under which the end token and one wordform per
+    constraint are the only likely tokens. Log-probs: every other token is
+    impossible (-inf), so the beams that end leave their states with fewer
+    live candidates than beams, and the fillers the search keeps there show
+    whether it froze the ended beams before the selection and only there.
+    Raw logits: every other token has logit -50, finite, because JAX takes
+    the exception logits by a one-hot einsum, which turns an infinite logit
+    anywhere in the row into NaN (0 · -inf) where the port's gather keeps
+    the value; ended beams must emit only the end token, which they do only
+    if the search freezes them after the selection."""
+    v, s, k, t, b = 12, 4, 4, 5, 2
+    raw = selection == "raw"
+    table = np.full(v, -50.0 if raw else -np.inf, np.float32)
+    table[[1, 5, 7]] = [2.0, 1.0, 0.5]                # end and one wordform per constraint
+    dense = np.zeros((s, s, v), np.uint8)
+    for st in range(s):
+        dense[st, st, :] = 1
+    for c, words in enumerate(([5, 6], [7, 8])):
+        for st in range(s):
+            if not st & (1 << c):
+                for w in words:
+                    dense[st, st | (1 << c), w], dense[st, st, w] = 1, 0
+    tables = jcbs.stack_fsm_tables([jcbs.fsm_to_tables(dense)] * b, pad_exceptions=8)
+    noise = np.zeros((t, b, s, k, 1), np.float32)
+    logz = np.log(np.exp(table.astype(np.float64)).sum()).astype(np.float32)
+
+    def jstep(tokens, carry, _):
+        logits = jnp.broadcast_to(jnp.asarray(table), tokens.shape + (v,))
+        out = (logits, jnp.full(tokens.shape, logz)) if raw else logits - logz
+        return out, carry
+
+    ref_seqs, ref_lp = jcbs.constrained_beam_search_fast(
+        jstep, jnp.full((b,), 1), _Carry(jnp.zeros((b, 1))), jcbs.FSMTables(
+            *map(jnp.asarray, tables)), jax.random.PRNGKey(0), max_steps=t, beam_size=k,
+        per_node_beam_size=k // 2, end_index=1, raw_step=raw, noise=jnp.asarray(noise))
+
+    def tstep(tokens, carry, _):
+        logits = torch.from_numpy(table).expand(tuple(tokens.shape) + (v,))
+        out = (logits, torch.full(tuple(tokens.shape), float(logz))) if raw else logits - logz
+        return out, carry
+
+    seqs, lp = tcbs.constrained_beam_search_fast(
+        tstep, torch.full((b,), 1), _Carry(torch.zeros(b, 1)),
+        tcbs.fsm_to_device(tcbs.FSMTables(*map(np.array, tables)), torch.device("cpu")),
+        torch.from_numpy(noise),
+        max_steps=t, beam_size=k, per_node_beam_size=k // 2, end_index=1, selection=selection)
+    np.testing.assert_array_equal(seqs.numpy(), np.asarray(ref_seqs))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(ref_lp), atol=SCORE_ATOL, rtol=0)
+    # live beams that ended emit only the end token (fillers may not)
+    ended = (np.cumsum(seqs.numpy() == 1, axis=-1) > 0) & (lp.numpy() > -1e18)[..., None]
+    assert (seqs.numpy()[ended] == 1).all() and ended[..., 1].any()
+    if not raw:
+        filler = (lp.numpy() < -1e18) & (lp.numpy() > -np.inf)
+        assert filler.any()
 
 
 def test_prehead_and_fused_agree_on_all_beams():
@@ -215,6 +307,28 @@ def test_decode_cbs_interface_matches_jax(case):
     best, lp = DecodeHarness(tparams, tcfg, device="cpu").decode_cbs(
         feats, sentiment, None, t_tables, nc, noise, NZ, selection="prehead")
     assert best.shape == ref_best.shape == (NZ, feats.shape[0], T)
+    np.testing.assert_array_equal(best.numpy(), ref_best)
+    np.testing.assert_allclose(lp.numpy(), ref_lp, atol=SCORE_ATOL, rtol=0)
+    assert np.isfinite(ref_lp).all()
+
+
+@pytest.mark.parametrize("latent_embedding", ["glove", "senti_word_net"])
+@pytest.mark.parametrize("selection", ["raw", "prehead"])
+def test_decode_cbs_mode2_matches_jax(selection, latent_embedding):
+    """The mode-2 prior: each step's prior mean attends over per-box
+    attribute embeddings (``obj_att_embeds``), and conditions the decoder on
+    it (glove) or on its first component (senti_word_net)."""
+    jcfg, tcfg = _cfg(sentiment_vae=2, latent_embedding=latent_embedding)
+    params = jcap.init_captioner(jax.random.PRNGKey(6), jcfg)
+    feats, sentiment, tables, noise = _inputs(7)
+    oae = np.random.RandomState(8).randn(B, NBOX, 4).astype(np.float32)
+    stacked = jharness.pad_tables_batch(tables, NZ)
+    ref_best, ref_lp = _jax_decode(params, jcfg, feats, sentiment, stacked, noise, selection,
+                                   oae=oae)
+
+    tparams = from_jax_params(jax.tree_util.tree_map(np.asarray, params), device="cpu")
+    best, lp = DecodeHarness(tparams, tcfg, device="cpu").decode_cbs(
+        feats, sentiment, oae, tables, 3, noise, NZ, selection=selection)
     np.testing.assert_array_equal(best.numpy(), ref_best)
     np.testing.assert_allclose(lp.numpy(), ref_lp, atol=SCORE_ATOL, rtol=0)
     assert np.isfinite(ref_lp).all()

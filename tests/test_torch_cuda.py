@@ -11,7 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from style_seqcvae_tpu_torch.decoding import beam_search as tbs
+from style_seqcvae_tpu_torch.decoding import cbs as tdense
+from style_seqcvae_tpu_torch.decoding.cbs_fast import fsm_to_tables
+from style_seqcvae_tpu_torch.decoding.fsm import pack_fsm
+from style_seqcvae_tpu_torch.decoding.harness import DecodeHarness, pad_tables_batch
+from style_seqcvae_tpu_torch.models import captioner as tcap
+from style_seqcvae_tpu_torch.models.updown_cell import init_cell_state
 from style_seqcvae_tpu_torch.ops.kernels import nms, roi_align, topk_lse, vocab_topk_lse
+from style_seqcvae_tpu_torch.weights import to_device
 
 # Kernel A sums each E-long f32 dot product in another order than the plain
 # matmul: values and lse ~1e-5 apart at these widths, a few 1e-4 at worst
@@ -406,3 +414,136 @@ def test_wrappers_raise_on_cuda_misuse(dev):
         nms.suppression_bitmask(torch.zeros(2, 5, 4, device=dev).transpose(0, 1), 0.5)
     with pytest.raises(ValueError):
         nms.suppression_bitmask(torch.zeros(41, device=dev)[1:].view(1, 10, 4), 0.5)  # 4 B off
+
+
+# ---------------------------------------------------------------- decodes
+# A small f32 model decoded on the GPU and on the CPU on the same seeded
+# noise. Every selection here runs without a kernel, so the two differ only
+# in how cuBLAS and the CPU sum the step's products (~1e-6): tokens must be
+# identical, scores within DECODE_LP_TOL.
+DECODE_LP_TOL = 1e-3
+DEC = dict(vocab_size=300, image_feature_size=32, embedding_size=300, hidden_size=24,
+           attention_projection_size=16, z_space=8, sentiment_vae=1, simple_vae=False,
+           max_caption_length=8, beam_size=4)
+DEC_B, DEC_NZ, DEC_S = 3, 2, 8
+
+
+def _decode_model(dev, **kw):
+    cfg = tcap.CaptionerConfig(**{**DEC, **kw})
+    params = tcap.init_captioner(cfg, seed=3, device="cpu")
+    rng = np.random.RandomState(4)
+    feats = rng.randn(DEC_B, 6, cfg.image_feature_size).astype(np.float32)
+    sent = rng.choice([-1.0, 1.0], (DEC_B, 1)).astype(np.float32)
+    return cfg, params, to_device(params, dev), feats, sent
+
+
+def _simple_fsm(rng, vocab):
+    f = np.zeros((DEC_S, DEC_S, vocab), np.uint8)
+    for s in range(DEC_S):
+        f[s, s, :] = 1
+    toks = rng.randint(2, vocab, (3, 2))
+    for c in range(3):
+        for s in range(DEC_S):
+            if not (s & 2 ** c) and (s | 2 ** c) < DEC_S:
+                for t in toks[c]:
+                    f[s, s | 2 ** c, t], f[s, s, t] = 1, 0
+    return f
+
+
+def _same(got, want, lp_got, lp_want, live=None):
+    live = torch.ones_like(lp_want, dtype=torch.bool) if live is None else live
+    assert torch.equal(got.cpu()[live], want[live])
+    assert (lp_got.cpu()[live] - lp_want[live]).abs().max().item() <= DECODE_LP_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("selection", ["raw", "logprob"])
+def test_decode_cbs_selection_gpu_matches_cpu(dev, selection):
+    cfg, params, params_gpu, feats, sent = _decode_model(dev)
+    rng = np.random.RandomState(5)
+    tables = pad_tables_batch([[fsm_to_tables(_simple_fsm(rng, cfg.vocab_size))]
+                               for _ in range(DEC_B)], DEC_NZ)
+    noise = rng.randn(DEC_NZ, cfg.max_caption_length, DEC_B, DEC_S, cfg.beam_size,
+                      cfg.z_space).astype(np.float32)
+    args = (feats, sent, None, tables, 3, noise, DEC_NZ)
+    want = DecodeHarness(params, cfg, device="cpu").decode_cbs(*args, selection=selection,
+                                                               return_all=True)
+    counts = (vocab_topk_lse.launches, topk_lse.launches)
+    got = DecodeHarness(params_gpu, cfg, device=dev).decode_cbs(*args, selection=selection,
+                                                                return_all=True)
+    assert (vocab_topk_lse.launches, topk_lse.launches) == counts     # no kernel
+    _same(got[0], want[0], got[1], want[1], live=want[1] > -1e18)
+
+
+@pytest.mark.cuda
+def test_decode_beam_gpu_matches_cpu(dev):
+    cfg, params, params_gpu, feats, sent = _decode_model(dev, embedding_size=16)
+    noise = np.random.RandomState(6).randn(DEC_NZ, cfg.max_caption_length, DEC_B,
+                                           cfg.beam_size, cfg.z_space).astype(np.float32)
+    want = DecodeHarness(params, cfg, device="cpu").decode_beam(feats, sent, None, noise, DEC_NZ)
+    got = DecodeHarness(params_gpu, cfg, device=dev).decode_beam(feats, sent, None, noise,
+                                                                 DEC_NZ)
+    assert got[0].device.type == "cuda"
+    _same(got[0], want[0], got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_greedy_and_dense_cbs_gpu_match_cpu(dev):
+    cfg, params, params_gpu, feats, sent = _decode_model(dev)
+    T, K = cfg.max_caption_length, cfg.beam_size
+    rng = np.random.RandomState(7)
+    packed = np.stack([pack_fsm(_simple_fsm(rng, cfg.vocab_size)) for _ in range(DEC_B)])
+    noise = torch.from_numpy(rng.randn(T, DEC_B, DEC_S, K, cfg.z_space).astype(np.float32))
+    out = {}
+    for d, p in ((torch.device("cpu"), params), (dev, params_gpu)):
+        ctx = tcap.make_decode_context(p, cfg, torch.from_numpy(feats).to(d),
+                                       sentiment=torch.from_numpy(sent).to(d))
+        step = tcap.make_optimized_step_fn(p, cfg, ctx)
+        start = torch.full((DEC_B,), cfg.boundary_index, device=d)
+        st = init_cell_state((DEC_B,), cfg.hidden_size, device=d)
+        out[d.type] = (
+            tbs.greedy_decode(step, start, st, noise[:, :, 0, :1].to(d), max_steps=T,
+                              end_index=cfg.boundary_index),
+            tdense.constrained_beam_search(step, start, st, packed, noise.to(d), max_steps=T,
+                                           beam_size=K, per_node_beam_size=K // 2,
+                                           end_index=cfg.boundary_index))
+    (g_cpu, (s_cpu, l_cpu)), (g_gpu, (s_gpu, l_gpu)) = out["cpu"], out["cuda"]
+    assert torch.equal(g_gpu.cpu(), g_cpu)
+    _same(s_gpu, s_cpu, l_gpu, l_cpu, live=l_cpu > -1e18)
+
+
+@pytest.mark.cuda
+def test_decodes_raise_on_cuda_misuse(dev):
+    cfg, _, params_gpu, feats, sent = _decode_model(dev)
+    harness = DecodeHarness(params_gpu, cfg, device=dev)
+    T, K = cfg.max_caption_length, cfg.beam_size
+    good = torch.zeros(DEC_NZ, T, DEC_B, K, cfg.z_space, device=dev)
+    with pytest.raises(ValueError):
+        harness.decode_beam(feats, sent, None, torch.Generator(), DEC_NZ)   # CPU generator
+    with pytest.raises(ValueError):
+        harness.decode_beam(feats, sent, None, good.long(), DEC_NZ)          # integer noise
+    with pytest.raises(ValueError):
+        harness.decode_beam(feats, sent, None, good[:, 1:], DEC_NZ)          # T - 1 rows
+    with pytest.raises(ValueError):
+        harness.decode_cbs(feats, sent, None, [[fsm_to_tables(_simple_fsm(
+            np.random.RandomState(0), cfg.vocab_size))]] * DEC_B, 3,
+            torch.Generator(), DEC_NZ, selection="raw")
+    ctx = tcap.make_decode_context(params_gpu, cfg, torch.from_numpy(feats).to(dev),
+                                   sentiment=torch.from_numpy(sent).to(dev))
+    step = tcap.make_optimized_step_fn(params_gpu, cfg, ctx)
+    start = torch.full((DEC_B,), cfg.boundary_index, device=dev)
+    st = init_cell_state((DEC_B,), cfg.hidden_size, device=dev)
+    with pytest.raises(ValueError):
+        tbs.beam_search(step, start, st, good[0].cpu(), max_steps=T, beam_size=K,
+                        end_index=1)                                          # noise on the CPU
+    with pytest.raises(ValueError):
+        tbs.greedy_decode(step, start, st, good[0, :, :, :1].half().long(), max_steps=T,
+                          end_index=1)
+    packed = np.zeros((DEC_B, DEC_S, cfg.vocab_size), np.uint32)
+    noise = torch.zeros(T, DEC_B, DEC_S, K, cfg.z_space, device=dev)
+    with pytest.raises(ValueError):
+        tdense.constrained_beam_search(step, start, st, torch.from_numpy(
+            packed.astype(np.float32)).to(dev), noise, max_steps=T, beam_size=K, end_index=1)
+    with pytest.raises(ValueError):
+        tdense.constrained_beam_search(step, start, st, packed[:, :, :, None], noise,
+                                       max_steps=T, beam_size=K, end_index=1)

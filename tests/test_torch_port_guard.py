@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
                  "ops.kernels.roi_align", "ops.kernels.nms", "ops.roi_align", "ops.nms",
                  "ops.boxes", "models.detector.anchors", "models.detector.defaults",
                  "models.detector.resnet", "models.detector.rpn",
-                 "models.detector.faster_rcnn", "models.detector.extract"):
+                 "models.detector.faster_rcnn", "models.detector.extract",
+                 "decoding.beam_search", "decoding.cbs", "decoding.fsm", "decoding.select"):
         assert "style_seqcvae_tpu_torch." + name in modules
     code = "\n".join([
         "import sys",
@@ -75,6 +76,12 @@ def test_entry_points_refuse_cpu_fallback():
     params = init_captioner(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DecodeHarness(params, cfg)
+    feats = np.zeros((1, 3, 4), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeHarness(params, cfg).decode_beam(feats, None, None, torch.Generator(), 1)
+    seqs, lp = DecodeHarness(params, cfg, device="cpu").decode_beam(
+        feats, None, None, torch.Generator().manual_seed(0), 1)
+    assert seqs.device.type == lp.device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_jax_params({"embedding": params["embedding"].numpy()})
 
