@@ -22,8 +22,11 @@ one JSON line per phase as it goes:
    run on the CPU; raw and logprob without a kernel), ``decode_beam``,
    ``greedy_decode``, and the dense CBS over the packed FSM against
    ``constrained_beam_search_fast`` (logprob) on the CPU on the reachable
-   states; each row reports the share of identical tokens and the largest
-   score difference where they are identical;
+   states, ``decode_sample`` with each of its four samplers on shared
+   z-noise and Gumbel noise (topp at temperature 0.8), and ``decode_cbs``
+   with the mode-2 prior (``sentiment_vae=2``, seeded attribute embeddings)
+   through raw and prehead; each row reports the share of identical tokens
+   and the largest score difference where they are identical;
 4. ``decode``: the full-width Style-SeqCVAE CBS decode (BASELINE.json config
    3: V=10500, E=600, H=900, P=768, z=150, F=2048, 100 boxes, 20 steps, batch
    16 x 20 z-samples x 8 FSM states x beam 5, sentiment_vae 1, bf16) through
@@ -53,6 +56,18 @@ one JSON line per phase as it goes:
    and each stage's device time on the card;
 9. ``e2e``: config 5 end to end, the detector's bf16 features fed to the
    full-width CBS decode (fused selection);
+10. ``sample``: ``DecodeHarness.decode_sample`` at config 3's widths (16 x 20
+   z, gumbel at beam 5, bf16) with each sampler at the inference CLI's
+   defaults: first and warm decode seconds, captions/s, the output checks,
+   the selection kernels' launches (0), ``distinct_per_image`` (distinct
+   captions among an image's 20) and ``repeat_identical`` (the share of
+   captions a second decode from the same seed repeats);
+11. ``diverse``: BASELINE.json config 4 as bench.py:511-581 runs it (config
+   3's model with the mode-2 prior, attribute embeddings RandomState(7)),
+   3 rounds of a CBS decode and an oracle CIDEr re-score on the host,
+   through raw and then prehead: decode and scoring seconds per round,
+   captions/s with the scoring, ``oracle_cider``; ``diverse_kernel``:
+   kernel A timed on its inputs from a mode-1 and a mode-2 decode;
 
 then the ``{"kernels": [...]}`` summary, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -70,6 +85,7 @@ import time
 import numpy as np
 import torch
 
+from style_seqcvae_tpu_torch.decoding import cbs_fast
 from style_seqcvae_tpu_torch.decoding.beam_search import greedy_decode
 from style_seqcvae_tpu_torch.decoding.cbs import constrained_beam_search
 from style_seqcvae_tpu_torch.decoding.cbs_fast import (
@@ -80,7 +96,8 @@ from style_seqcvae_tpu_torch.decoding.cbs_fast import (
     stack_fsm_tables,
 )
 from style_seqcvae_tpu_torch.decoding.fsm import pack_fsm
-from style_seqcvae_tpu_torch.decoding.harness import DecodeHarness, pad_tables_batch
+from style_seqcvae_tpu_torch.decoding.harness import SAMPLERS, DecodeHarness, pad_tables_batch
+from style_seqcvae_tpu_torch.evaluation.metrics import Cider
 from style_seqcvae_tpu_torch.models.captioner import (
     CaptionerConfig,
     init_captioner,
@@ -136,6 +153,16 @@ AGREE_LP_TOL = 1e-3
 # config 1 (bench.py:243-323): greedy, batch 100, 10 decodes chained
 GREEDY_BATCH, GREEDY_CHAIN = 100, 10
 END_INDEX = CaptionerConfig(vocab_size=V).boundary_index
+# the samplers as scripts/inference.py runs them by default (--sampler-k,
+# --sampler-p, --sampler-temperature)
+SAMPLER_KW = dict(top_k=5, top_p=0.9, temperature=1.0)
+# config 4 (bench.py:511-581): the decode's mode-2 attribute embeddings,
+# RandomState(7); the reference corpus decoded under another noise seed
+# (bench.py's key 777); 3 rounds, each under a fresh seed
+DIVERSE_OAE_SEED, DIVERSE_REF_SEED, DIVERSE_SEED0, DIVERSE_ROUNDS = 7, 777, 50, 3
+# kernel A's input is taken from this step of a prehead decode to time it
+# on the path's own activations
+PREHEAD_PROBE_STEP = 10
 
 # config 5's detector (bench.py:602-640): ResNet-101 C4, 81 classes, 98
 # attributes, anchor scales (4, 8, 16, 32) x ratios (0.5, 1, 2), RoIAlign,
@@ -469,6 +496,33 @@ def phase_agree(dev: torch.device) -> None:
     if not torch.equal(lp.cpu() > -1e18, reach):
         fail("the dense CBS on the GPU reaches other states than the fast CBS on the CPU")
 
+    # the samplers on shared z-noise and Gumbel noise (-log E, E ~ Exp(1));
+    # no kernel on their path
+    rng = np.random.RandomState(6)
+    for method in SAMPLERS:
+        inner = (BEAM,) if method == "gumbel" else ()
+        z = rng.randn(n_z, T, batch, BEAM if inner else 1, cfg.z_space).astype(np.float32)
+        g = -np.log(rng.exponential(size=(n_z, T, batch) + inner + (cfg.vocab_size,)))
+        sample_noise = (z, g.astype(np.float32))
+        kw = {"temperature": 0.8} if method == "topp" else {}
+        ref = cpu.decode_sample(feats, sentiment, None, sample_noise, n_z, method, **kw)
+        got = gpu.decode_sample(feats, sentiment, None, sample_noise, n_z, method, **kw)
+        agree_row(f"decode_sample/{method}", got, ref, None, None, AGREE_MIN_NO_KERNEL, **kw)
+
+    # the mode-2 prior (config 4's): raw without a kernel, prehead through A
+    cfg2 = cfg._replace(sentiment_vae=2)
+    params2 = init_captioner(cfg2, seed=4, device="cpu")
+    oae = np.random.RandomState(7).randn(batch, boxes, cfg2.z_space).astype(np.float32)
+    cpu2 = DecodeHarness(params2, cfg2, device="cpu")
+    gpu2 = DecodeHarness(to_device(params2, dev), cfg2, device=dev)
+    for selection in ("raw", "prehead"):
+        args = (feats, sentiment, oae, tables, N_CONSTRAINTS, noise, n_z)
+        ref = cpu2.decode_cbs(*args, selection=selection)
+        got = gpu2.decode_cbs(*args, selection=selection)
+        agree_row(f"decode_cbs_mode2/{selection}", got[0], ref[0], got[1], ref[1],
+                  AGREE_MIN if selection == "prehead" else AGREE_MIN_NO_KERNEL,
+                  selection=selection, sentiment_vae=2)
+
 
 def frozen_after_end(tokens: torch.Tensor, live: torch.Tensor) -> bool:
     """Live captions that emitted the end token emit nothing else after it."""
@@ -632,6 +686,152 @@ def phase_greedy(dev: torch.device) -> None:
                          "distinct_chained_outputs": distinct})
     if toks.shape != (GREEDY_BATCH, STEPS):
         fail(f"greedy: one decode gave {tuple(toks.shape)}")
+
+
+def phase_sample(dev: torch.device, decode_state) -> None:
+    """DecodeHarness.decode_sample at config 3's widths (16 images x 20 z;
+    gumbel at beam 5), bf16, sentiment_vae 1, one row per sampler with the
+    inference CLI's defaults; each decode twice from the same seed."""
+    harness, sentiment, _ = decode_state
+    feats = np.random.RandomState(0).randn(BATCH, BOXES, F).astype(np.float32)
+    for i, method in enumerate(SAMPLERS):
+        def run():
+            return harness.decode_sample(feats, sentiment, None,
+                                         torch.Generator(device=dev).manual_seed(20 + i),
+                                         N_Z, method, **SAMPLER_KW)
+
+        reset_selection_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        toks = run()
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        counts = selection_counts()
+        t0 = time.time()
+        again = run()
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
+        rows = toks.cpu().tolist()                                    # (n_z, B, T)
+        distinct = float(np.mean([len({tuple(rows[k][b]) for k in range(N_Z)})
+                                  for b in range(BATCH)]))
+        check_decode_output(f"sample ({method})", toks, None, [N_Z, BATCH, STEPS], counts,
+                            {name: 0 for name in counts},
+                            {"phase": "sample", "method": method, **SAMPLER_KW,
+                             "beam": BEAM if method == "gumbel" else None, "batch": BATCH,
+                             "n_z": N_Z, "first_run_s": first_s, "warm_run_s": warm_s,
+                             "captions_per_s": BATCH * N_Z / warm_s,
+                             "distinct_per_image": distinct,
+                             "repeat_identical": (toks == again).all(dim=-1).float()
+                             .mean().item()})
+        if method == "multinomial" and distinct == 1.0:
+            fail("multinomial sampling gave one caption for every z of every image: "
+                 "the noise does not reach the draw")
+
+
+def tok_str(row) -> str:
+    """bench.py's caption string: ``w{t}`` for every token t > 1."""
+    return " ".join(f"w{t}" for t in row if t > 1) or "w0"
+
+
+def oracle_cider(cider: Cider, corpus, gts: dict, seqs: list) -> float:
+    """bench.py:549-558: each image's z whose caption scores the best CIDEr
+    against the corpus, then the corpus CIDEr of those captions."""
+    n_z, batch = len(seqs), len(seqs[0])
+    per_z = [cider.compute_score(gts, {i: [tok_str(seqs[k][i])] for i in range(batch)},
+                                 corpus=corpus)[1] for k in range(n_z)]
+    best = np.argmax(np.stack(per_z, axis=1), axis=1)
+    return cider.compute_score(gts, {i: [tok_str(seqs[best[i]][i])] for i in range(batch)},
+                               corpus=corpus)[0]
+
+
+def prehead_input(decode) -> torch.Tensor:
+    """Kernel A's input (R, E) at step PREHEAD_PROBE_STEP of ``decode()``, a
+    prehead decode, copied by a spy around the search's call of A."""
+    calls, real = [], cbs_fast.matmul_top_k_with_lse
+
+    def spy(x, emb, k):
+        calls.append(x.clone() if len(calls) == PREHEAD_PROBE_STEP - 1 else None)
+        return real(x, emb, k)
+
+    cbs_fast.matmul_top_k_with_lse = spy
+    try:
+        decode()
+    finally:
+        cbs_fast.matmul_top_k_with_lse = real
+    return calls[PREHEAD_PROBE_STEP - 1]
+
+
+def phase_diverse(dev: torch.device, decode_state) -> None:
+    """BASELINE.json config 4 as bench.py:511-581 runs it: config 3's model
+    with the mode-2 prior (attribute embeddings RandomState(7)), bf16, 8
+    FSM states, beam 5, then the oracle CIDEr re-score on the host, for 3
+    rounds; once through the raw selection (bench.py's route) and once
+    through prehead (kernel A). bench.py overlaps a round's scoring with the
+    next decode; here they run in turn and are reported apart. Then kernel
+    A timed on its inputs from a mode-1 and a mode-2 decode."""
+    cfg = decode_cfg(sentiment_vae=2)
+    params = init_captioner(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    feats, sentiment, tables = decode_setup(cfg, BATCH, N_Z, BOXES, seed=0)
+    oae = np.random.RandomState(DIVERSE_OAE_SEED).randn(BATCH, BOXES, Z).astype(np.float32)
+    harness = DecodeHarness(params, cfg, device=dev)
+
+    def decode(seed: int, selection: str):
+        return harness.decode_cbs(feats, sentiment, oae, tables, N_CONSTRAINTS,
+                                  torch.Generator(device=dev).manual_seed(seed), N_Z,
+                                  selection=selection)
+
+    ref = decode(DIVERSE_REF_SEED, "raw")[0].cpu().tolist()
+    gts = {i: [tok_str(ref[0][i])] for i in range(BATCH)}
+    cider = Cider()
+    corpus = cider.make_corpus(gts)
+    for selection in ("raw", "prehead"):
+        expected = {"vocab_topk_lse": STEPS - 1 if selection == "prehead" else 0,
+                    "topk_lse": 0}
+        decode_s, score_s, scores = [], [], []
+        for i in range(DIVERSE_ROUNDS):
+            reset_selection_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            best, best_lp = decode(DIVERSE_SEED0 + i, selection)
+            torch.cuda.synchronize()
+            decode_s.append(time.time() - t0)
+            counts = selection_counts()
+            if counts != expected:
+                fail(f"diverse ({selection}) round {i}: launch counts {counts}, "
+                     f"expected {expected}")
+            t0 = time.time()
+            scores.append(oracle_cider(cider, corpus, gts, best.cpu().tolist()))
+            score_s.append(time.time() - t0)
+        total = sum(decode_s) + sum(score_s)
+        check_decode_output(f"diverse ({selection})", best, best_lp, [N_Z, BATCH, STEPS],
+                            counts, expected,
+                            {"phase": "diverse", "config": 4, "selection": selection,
+                             "sentiment_vae": 2, "rounds": DIVERSE_ROUNDS,
+                             "decode_s": decode_s, "scoring_s": score_s,
+                             "scoring_share": sum(score_s) / total,
+                             "captions_per_s_with_scoring":
+                                 DIVERSE_ROUNDS * BATCH * N_Z / total,
+                             "captions_per_s_decode_only":
+                                 DIVERSE_ROUNDS * BATCH * N_Z / sum(decode_s),
+                             "oracle_cider": scores})
+        if not all(np.isfinite(c) and c >= 0 for c in scores):
+            fail(f"diverse ({selection}): oracle CIDEr {scores}")
+
+    # kernel A on its own path's inputs: does the mode-2 prior change its time?
+    mode1, sentiment1, tables1 = decode_state
+    feats1 = np.random.RandomState(0).randn(BATCH, BOXES, F).astype(np.float32)
+    x1 = prehead_input(lambda: mode1.decode_cbs(
+        feats1, sentiment1, None, tables1, N_CONSTRAINTS,
+        torch.Generator(device=dev).manual_seed(7), N_Z, selection="prehead"))
+    x2 = prehead_input(lambda: decode(DIVERSE_SEED0, "prehead"))
+    k = BEAM // 2 + tables.exc_token.shape[-1]
+    timing = {}
+    for name, x, emb in (("mode1", x1, mode1.params["embedding"]),
+                         ("mode2", x2, params["embedding"])):
+        ms, ms_range = time_ms_range(lambda: vocab_topk_lse.matmul_top_k_with_lse(x, emb, k))
+        timing[name] = {"ms": ms, "ms_range": ms_range, "rows": x.shape[0]}
+    emit({"phase": "diverse_kernel", "name": "vocab_topk_lse", "step": PREHEAD_PROBE_STEP,
+          "k": k, "on_path_inputs": timing})
 
 
 def seeded_rois(gen: torch.Generator, dev: torch.device) -> torch.Tensor:
@@ -1010,6 +1210,10 @@ def main() -> int:
     launches.update(phase_detect(dev, det_state))
     phase_detect_agree(dev, det_state)
     phase_e2e(dev, det_state, decode_state)
+    # the diverse-decoding paths last, so that the earlier paths run as
+    # they did before these were added
+    phase_sample(dev, decode_state)
+    phase_diverse(dev, decode_state)
 
     kernels = []
     for name, row in {**rows, **det_rows}.items():

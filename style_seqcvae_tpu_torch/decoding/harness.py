@@ -1,5 +1,6 @@
-"""Diverse decoding: n_z z-samples × (constrained) beam search over a batch
-of images (counterpart of ``style_seqcvae_tpu/decoding/harness.py``).
+"""Diverse decoding: n_z z-samples × (constrained) beam search or a
+stochastic sampler over a batch of images (counterpart of
+``style_seqcvae_tpu/decoding/harness.py``).
 
 The JAX harness vmaps the search over z. Here z is a batch dimension written
 out: the search runs on B·n_z rows ordered image-major (row b·n_z + z), so a
@@ -21,6 +22,7 @@ from style_seqcvae_tpu_torch.decoding.cbs_fast import (
     constrained_beam_search_fast,
     fsm_to_device,
 )
+from style_seqcvae_tpu_torch.decoding.samplers import gumbel_beam_search, sample_decode
 from style_seqcvae_tpu_torch.decoding.select import select_best_beam_simple
 from style_seqcvae_tpu_torch.device import as_tensor, resolve_device
 from style_seqcvae_tpu_torch.models.captioner import (
@@ -29,6 +31,10 @@ from style_seqcvae_tpu_torch.models.captioner import (
     make_optimized_step_fn,
 )
 from style_seqcvae_tpu_torch.models.updown_cell import init_cell_state
+
+
+# the choices of scripts/inference.py --sampler
+SAMPLERS = ("multinomial", "topk", "topp", "gumbel")
 
 
 def _bucket(n: int, buckets=(8, 12, 16, 24, 32)) -> int:
@@ -108,19 +114,20 @@ class DecodeHarness:
         return (as_tensor(feats, self.device, dtype), as_tensor(sentiment, self.device),
                 as_tensor(obj_att_embeds, self.device, dtype))
 
-    def _noise_rows(self, noise, n_z: int, B: int, inner: Tuple[int, ...]):
-        """z-noise in the layout (n_z, max_steps, B, *inner, z) → (max_steps,
-        B·n_z, *inner, z), image-major rows; a generator passes through (the
+    def _noise_rows(self, noise, n_z: int, B: int, inner: Tuple[int, ...], last: int = 0):
+        """Noise in the layout (n_z, max_steps, B, *inner, last) → (max_steps,
+        B·n_z, *inner, last), image-major rows; ``last`` is z (the default)
+        for z-noise, V for Gumbel noise. A generator passes through (the
         search checks its device)."""
         if isinstance(noise, torch.Generator):
             return noise
         noise = as_tensor(noise, self.device)
-        T, z = self.cfg.max_caption_length, self.cfg.z_space
+        T, last = self.cfg.max_caption_length, last or self.cfg.z_space
         if (not noise.is_floating_point() or noise.dim() != 4 + len(inner)
-                or tuple(noise.shape[:3]) != (n_z, T, B) or noise.shape[-1] != z
+                or tuple(noise.shape[:3]) != (n_z, T, B) or noise.shape[-1] != last
                 or any(d not in (1, k) for d, k in zip(noise.shape[3:-1], inner))):
-            raise ValueError(f"noise must be floating ({n_z}, {T}, {B}, "
-                             f"{', '.join(f'{k} or 1' for k in inner)}, {z}), got "
+            dims = "".join(f"{k} or 1, " for k in inner)
+            raise ValueError(f"noise must be floating ({n_z}, {T}, {B}, {dims}{last}), got "
                              f"{noise.dtype} {tuple(noise.shape)}")
         # (n_z, T, B, ...) → (T, B, n_z, ...) → (T, B·n_z, ...)
         noise = noise.float().permute(1, 2, 0, *range(3, noise.dim()))
@@ -216,3 +223,46 @@ class DecodeHarness:
                                per_node_beam_size=cfg.beam_size // 2,
                                end_index=cfg.boundary_index)
         return self._z_major(seqs[:, 0, :], B, n_z), self._z_major(lp[:, 0], B, n_z)
+
+    @torch.inference_mode()
+    def decode_sample(self, feats, sentiment, obj_att_embeds, noise, n_z: int, method: str,
+                      top_k: int = 5, top_p: float = 0.9, temperature: float = 1.0
+                      ) -> torch.Tensor:
+        """Diverse decoding by the stochastic samplers (``scripts/inference.py
+        --sampler``), n_z z-samples per image through the optimized step's
+        log-prob contract: ``method`` "multinomial", "topk" (``top_k``),
+        "topp" (``top_p``; both at ``temperature``) or "gumbel" (Stochastic
+        Beam Search at beam ``cfg.beam_size``, its highest perturbed-score
+        sample). feats (B, N, F); sentiment (B, 1) or None; obj_att_embeds
+        (B, N, z) or None. ``noise``: a ``torch.Generator`` on the decode
+        device, or a pair (z-noise, Gumbel noise) in the JAX-major layout:
+        z-noise (n_z, max_steps, B, 1 or K, z) and Gumbel noise (n_z,
+        max_steps, B, V), or (n_z, max_steps, B, K, V) for "gumbel" (row 0's
+        first beam holds the first step's draw; see ``decoding/samplers.py``).
+
+        Returns (n_z, B, T) token ids."""
+        if method not in SAMPLERS:
+            raise ValueError(f"method must be one of {SAMPLERS}, got {method!r}")
+        cfg, dev = self.cfg, self.device
+        feats, sentiment, obj_att_embeds = self._inputs(feats, sentiment, obj_att_embeds)
+        B = feats.shape[0]
+        K = cfg.beam_size if method == "gumbel" else 1
+        if not isinstance(noise, torch.Generator):
+            if not isinstance(noise, (tuple, list)) or len(noise) != 2:
+                raise ValueError("noise must be a torch.Generator or a pair (z_noise, "
+                                 f"gumbel_noise), got {type(noise).__name__}")
+            noise = (self._noise_rows(noise[0], n_z, B, (K,)),
+                     self._noise_rows(noise[1], n_z, B, (K,) if method == "gumbel" else (),
+                                      cfg.vocab_size))
+        grid_step = self._grid_step(feats, sentiment, obj_att_embeds, n_z)
+        start = torch.full((B * n_z,), cfg.boundary_index, dtype=torch.long, device=dev)
+        init_state = init_cell_state((B * n_z,), cfg.hidden_size, device=dev, dtype=feats.dtype)
+        kw = dict(max_steps=cfg.max_caption_length, end_index=cfg.boundary_index)
+        if method == "gumbel":
+            seqs = gumbel_beam_search(grid_step, start, init_state, noise,
+                                      beam_size=cfg.beam_size, **kw)[0][:, 0, :]
+        else:
+            seqs = sample_decode(grid_step, start, init_state, noise, temperature=temperature,
+                                 top_k=top_k if method == "topk" else 0,
+                                 top_p=top_p if method == "topp" else 0.0, **kw)
+        return self._z_major(seqs, B, n_z)

@@ -13,6 +13,7 @@ import torch
 
 from style_seqcvae_tpu_torch.decoding import beam_search as tbs
 from style_seqcvae_tpu_torch.decoding import cbs as tdense
+from style_seqcvae_tpu_torch.decoding import samplers as tsam
 from style_seqcvae_tpu_torch.decoding.cbs_fast import fsm_to_tables
 from style_seqcvae_tpu_torch.decoding.fsm import pack_fsm
 from style_seqcvae_tpu_torch.decoding.harness import DecodeHarness, pad_tables_batch
@@ -547,3 +548,86 @@ def test_decodes_raise_on_cuda_misuse(dev):
     with pytest.raises(ValueError):
         tdense.constrained_beam_search(step, start, st, packed[:, :, :, None], noise,
                                        max_steps=T, beam_size=K, end_index=1)
+
+
+# the samplers on the GPU against the CPU: the same f32 model, z-noise and
+# Gumbel noise on both sides, no kernel on the path, so the tokens must be
+# identical
+SAMPLE_METHODS = {"multinomial": {}, "topk": {}, "topp": {"temperature": 0.8}, "gumbel": {}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", sorted(SAMPLE_METHODS))
+def test_decode_sample_gpu_matches_cpu(dev, method):
+    cfg, params, params_gpu, feats, sent = _decode_model(dev)
+    T, K = cfg.max_caption_length, cfg.beam_size
+    rng = np.random.RandomState(8)
+    inner = (K,) if method == "gumbel" else ()
+    z = rng.randn(DEC_NZ, T, DEC_B, K if inner else 1, cfg.z_space).astype(np.float32)
+    g = -np.log(rng.exponential(size=(DEC_NZ, T, DEC_B) + inner + (cfg.vocab_size,))
+                ).astype(np.float32)
+    args = (feats, sent, None, (z, g), DEC_NZ, method)
+    want = DecodeHarness(params, cfg, device="cpu").decode_sample(*args, **SAMPLE_METHODS[method])
+    counts = (vocab_topk_lse.launches, topk_lse.launches)
+    got = DecodeHarness(params_gpu, cfg, device=dev).decode_sample(*args,
+                                                                   **SAMPLE_METHODS[method])
+    assert (vocab_topk_lse.launches, topk_lse.launches) == counts     # no kernel
+    assert got.device.type == dev.type and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("selection", ["raw", "prehead"])
+def test_decode_cbs_mode2_gpu_matches_cpu(dev, selection):
+    """Mode 2 (the per-step attention-weighted attribute prior). ``raw`` has
+    no kernel: identical tokens. ``prehead`` runs kernel A (f32) on the GPU
+    and its plain version on the CPU, whose sums differ in order: a near-tie
+    may flip a beam, so 90% of the best captions must be identical."""
+    cfg, params, params_gpu, feats, sent = _decode_model(dev, sentiment_vae=2)
+    rng = np.random.RandomState(9)
+    oae = rng.randn(DEC_B, feats.shape[1], cfg.z_space).astype(np.float32)
+    tables = pad_tables_batch([[fsm_to_tables(_simple_fsm(rng, cfg.vocab_size))]
+                               for _ in range(DEC_B)], DEC_NZ)
+    noise = rng.randn(DEC_NZ, cfg.max_caption_length, DEC_B, DEC_S, cfg.beam_size,
+                      cfg.z_space).astype(np.float32)
+    args = (feats, sent, oae, tables, 3, noise, DEC_NZ)
+    want = DecodeHarness(params, cfg, device="cpu").decode_cbs(*args, selection=selection)
+    before = vocab_topk_lse.launches
+    got = DecodeHarness(params_gpu, cfg, device=dev).decode_cbs(*args, selection=selection)
+    launched = vocab_topk_lse.launches - before
+    if selection == "raw":
+        assert launched == 0
+        _same(got[0], want[0], got[1], want[1])
+    else:
+        assert launched == cfg.max_caption_length - 1
+        same = (got[0].cpu() == want[0]).all(dim=-1)
+        assert same.float().mean().item() >= 0.9
+        assert (got[1].cpu() - want[1])[same].abs().max().item() <= DECODE_LP_TOL
+
+
+@pytest.mark.cuda
+def test_decode_sample_raises_on_cuda_misuse(dev):
+    cfg, _, params_gpu, feats, sent = _decode_model(dev)
+    harness = DecodeHarness(params_gpu, cfg, device=dev)
+    T, V = cfg.max_caption_length, cfg.vocab_size
+    z = torch.zeros(DEC_NZ, T, DEC_B, 1, cfg.z_space, device=dev)
+    g = torch.zeros(DEC_NZ, T, DEC_B, V, device=dev)
+    with pytest.raises(ValueError):
+        harness.decode_sample(feats, sent, None, torch.Generator(), DEC_NZ, "topk")  # CPU gen
+    with pytest.raises(ValueError):
+        harness.decode_sample(feats, sent, None, torch.Generator(device=dev), DEC_NZ, "top-k")
+    with pytest.raises(ValueError):
+        harness.decode_sample(feats, sent, None, (z, g[..., :-1]), DEC_NZ, "multinomial")
+    with pytest.raises(ValueError):
+        harness.decode_sample(feats, sent, None, (z, g), DEC_NZ, "gumbel")   # no beam axis
+    with pytest.raises(ValueError):
+        harness.decode_sample(feats, sent, None, (z, g.long()), DEC_NZ, "multinomial")
+    ctx = tcap.make_decode_context(params_gpu, cfg, torch.from_numpy(feats).to(dev),
+                                   sentiment=torch.from_numpy(sent).to(dev))
+    step = tcap.make_optimized_step_fn(params_gpu, cfg, ctx)
+    start = torch.full((DEC_B,), cfg.boundary_index, device=dev)
+    st = init_cell_state((DEC_B,), cfg.hidden_size, device=dev)
+    with pytest.raises(ValueError):          # Gumbel noise on the CPU
+        tsam.sample_decode(step, start, st, (z[0], g[0].cpu()), max_steps=T, end_index=1)
+    with pytest.raises(ValueError):          # a CPU generator for a GPU decode
+        tsam.gumbel_beam_search(step, start, st, torch.Generator(), max_steps=T,
+                                beam_size=cfg.beam_size, end_index=1)

@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
                  "ops.boxes", "models.detector.anchors", "models.detector.defaults",
                  "models.detector.resnet", "models.detector.rpn",
                  "models.detector.faster_rcnn", "models.detector.extract",
-                 "decoding.beam_search", "decoding.cbs", "decoding.fsm", "decoding.select"):
+                 "decoding.beam_search", "decoding.cbs", "decoding.fsm", "decoding.select",
+                 "decoding.samplers", "evaluation.metrics"):
         assert "style_seqcvae_tpu_torch." + name in modules
     code = "\n".join([
         "import sys",
@@ -82,6 +83,12 @@ def test_entry_points_refuse_cpu_fallback():
     seqs, lp = DecodeHarness(params, cfg, device="cpu").decode_beam(
         feats, None, None, torch.Generator().manual_seed(0), 1)
     assert seqs.device.type == lp.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeHarness(params, cfg).decode_sample(feats, None, None, torch.Generator(), 1,
+                                                 "multinomial")
+    toks = DecodeHarness(params, cfg, device="cpu").decode_sample(
+        feats, None, None, torch.Generator().manual_seed(0), 1, "multinomial")
+    assert toks.device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_jax_params({"embedding": params["embedding"].numpy()})
 
