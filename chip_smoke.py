@@ -68,6 +68,16 @@ one JSON line per phase as it goes:
    through raw and then prehead: decode and scoring seconds per round,
    captions/s with the scoring, ``oracle_cider``; ``diverse_kernel``:
    kernel A timed on its inputs from a mode-1 and a mode-2 decode;
+12. ``cli``: the inference CLI (``style_seqcvae_tpu_torch.scripts.inference``)
+   on a world that the port's own code writes (a vocabulary of 10,500
+   tokens, a wordform TSV, a features.h5 of 48 images x 100 boxes x 2048,
+   a YAML config with the published config's MODEL section at beam 5, 20 z,
+   CBS on the sentiment word): first an ``agree`` row (its group functions
+   on the GPU against the CPU at a small f32 width), ``cli_host`` (the
+   host data path per image: reading, FSM building, packing, tables), then
+   the CBS run (``--bf16 --batch-images 16``: 960 captions, kernel A 19
+   times a group, no fallback) and a ``--sampler topp`` run (no kernel),
+   each with its wall time, images/s, captions/s and the host's share;
 
 then the ``{"kernels": [...]}`` summary, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -77,14 +87,25 @@ non-zero before the last line. Exits non-zero at once without a GPU.
 from __future__ import annotations
 
 import json
+import random
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from style_seqcvae_tpu_torch.config import Config
+from style_seqcvae_tpu_torch.data.datasets import EvaluationDatasetWithConstraints
+from style_seqcvae_tpu_torch.data.vocabulary import (
+    BOUNDARY_TOKEN,
+    UNK_TOKEN,
+    Vocabulary,
+    add_constraint_words_to_vocabulary,
+)
 from style_seqcvae_tpu_torch.decoding import cbs_fast
 from style_seqcvae_tpu_torch.decoding.beam_search import greedy_decode
 from style_seqcvae_tpu_torch.decoding.cbs import constrained_beam_search
@@ -124,6 +145,8 @@ from style_seqcvae_tpu_torch.models.detector.rpn import (
     rpn_heads,
 )
 from style_seqcvae_tpu_torch.ops.kernels import _build, nms, roi_align, topk_lse, vocab_topk_lse
+from style_seqcvae_tpu_torch.scripts import inference as cli
+from style_seqcvae_tpu_torch.utils.features_io import FeaturesWriter, pack_obj_atts
 from style_seqcvae_tpu_torch.weights import to_device
 
 # flagship decode (bench.py:54-55, :424): reference run dims and grid
@@ -197,6 +220,18 @@ ROI_OPS_PER_OUT = 33
 # once, so neighbours one bf16 ulp (2^-7 relative) apart. Kernel D's
 # decisions are exact: keep_idx and keep_mask must be identical.
 ROI_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-6, 2.0 ** -7)}
+# the inference CLI at config 3's grid: 48 images in groups of 16, 20 z each,
+# CBS on the sentiment word ("pos", whose wordforms the CLI adds to the
+# vocabulary); the model is the published config's MODEL section
+# (configs/style_seqcvae_senticap.yml) at beam 5
+CLI_IMAGES, CLI_GROUP, CLI_HOST_IMAGES = 48, 16, 4
+CLI_FORMS = ("good", "great", "nice", "lovely")
+PUBLISHED_MODEL = dict(IMAGE_FEATURE_SIZE=F, EMBEDDING_SIZE=E, HIDDEN_SIZE=H,
+                       ATTENTION_PROJECTION_SIZE=P, Z_SPACE=Z, SENTIMENT_VAE=1,
+                       SIMPLE_VAE="false", PRIOR_STD=1.0, SENTI_PRIOR_MULTIP=1.0,
+                       KLD_WEIGHT=750, N_Z_SAMPLES=N_Z, STATE_MACHINE_PER_Z_SAMPLE="true",
+                       BEAM_SIZE=BEAM, USE_CBS="true", CBS_SIMPLE="true",
+                       MIN_CONSTRAINTS_TO_SATISFY=2)
 # detect_agree: pooled features of the path, whose scale is set by the
 # random ResNet (measured up to ~10): 1e-5 relative to the largest value
 DETECT_AGREE_REL = 1e-5
@@ -1187,6 +1222,159 @@ def phase_e2e(dev: torch.device, det_state, decode_state) -> None:
         fail(f"e2e launch counts {counts}, expected {expected}")
 
 
+def write_cli_world(root: Path, *, vocab_size: int, images: int, boxes: int, steps: int,
+                    model: dict, seed: int) -> Path:
+    """The inference CLI's inputs, written by the port's own code: a
+    vocabulary that holds ``vocab_size`` tokens once the CLI adds the
+    wordforms, the wordform TSV, a features.h5 of seeded random features
+    with packed object ids, and the YAML config; returns the config's path."""
+    root.mkdir(parents=True)
+    words = [f"w{i}" for i in range(vocab_size - 2 - len(CLI_FORMS))]
+    Vocabulary([UNK_TOKEN, BOUNDARY_TOKEN] + words).save_to_files(str(root / "vocab"))
+    (root / "wordforms.tsv").write_text("pos\t" + ",".join(CLI_FORMS) + "\n")
+    rng = np.random.RandomState(seed)
+    w = FeaturesWriter(str(root / "features.h5"), images)
+    for i in range(images):
+        w.write(i, 1000 + i, rng.randn(boxes, model["IMAGE_FEATURE_SIZE"]).astype(np.float32),
+                pack_obj_atts(rng.randint(1, 81, boxes), [[a] for a in rng.randint(0, 50, boxes)]),
+                np.zeros((0,), np.float32))
+    w.close()
+    text = "\n".join([
+        "RANDOM_SEED: 0", "DATA:", f"  VOCABULARY: {root / 'vocab'}", "  TRAIN_FEATURES: ''",
+        f"  INFER_FEATURES: {root / 'features.h5'}", "  DO_LOAD_COCO: false",
+        "  DO_LOAD_SENTICAP: false", "  SENTICAP_SENTIMENT: pos",
+        f"  MAX_CAPTION_LENGTH: {steps}", f"  MAX_BOXES: {boxes}", "  CBS:",
+        "    INFER_BOXES: ''", "    CLASS_HIERARCHY: ''", f"    WORDFORMS: {root / 'wordforms.tsv'}",
+        "    MAX_GIVEN_CONSTRAINTS: 3", "    MAX_WORDS_PER_CONSTRAINT: 3", "MODEL:",
+        *(f"  {k}: {v}" for k, v in model.items())])
+    (root / "cfg.yml").write_text(text + "\n")
+    return root / "cfg.yml"
+
+
+def cli_dataset(cfg_path: Path):
+    """The CLI's config, vocabulary and CBS dataset, seeded as it seeds them."""
+    C = Config(str(cfg_path))
+    voc = Vocabulary.from_files(C.DATA.VOCABULARY)
+    add_constraint_words_to_vocabulary(voc, C.DATA.CBS.WORDFORMS)
+    random.seed(C.RANDOM_SEED)
+    return C, voc, EvaluationDatasetWithConstraints.from_config(C, vocabulary=voc)
+
+
+def cli_agree(dev: torch.device, root: Path) -> None:
+    """The CLI's group functions on the GPU against the CPU, f32, small
+    width, on the same noise stacks (kernel A on the GPU, its plain version
+    on the CPU)."""
+    small = dict(PUBLISHED_MODEL, IMAGE_FEATURE_SIZE=64, EMBEDDING_SIZE=300, HIDDEN_SIZE=48,
+                 ATTENTION_PROJECTION_SIZE=32, Z_SPACE=16, N_Z_SAMPLES=3)
+    C, voc, ds = cli_dataset(write_cli_world(root / "small", vocab_size=700, images=4, boxes=10,
+                                             steps=10, model=small, seed=1))
+    prepared = [(ds.collate_fn([ds[i]]), None) for i in range(len(ds))]
+    cfg = CaptionerConfig.from_config(C, voc)
+    params = init_captioner(cfg, seed=4, device="cpu")
+    n_z = C.MODEL.N_Z_SAMPLES
+    noise = np.random.RandomState(3).randn(n_z, cfg.max_caption_length, len(prepared), STATES,
+                                           cfg.beam_size, cfg.z_space).astype(np.float32)
+    out = {}
+    for side, d, p in (("cpu", torch.device("cpu"), params), ("gpu", dev, to_device(params, dev))):
+        kind_out = cli._dispatch_group(C, cfg, DecodeHarness(p, cfg, device=d), prepared, noise, n_z)
+        out[side] = torch.from_numpy(np.stack(cli._collect_group(C, cfg, kind_out, prepared, n_z)))
+    agree_row("cli_group/cbs_simple", out["gpu"], out["cpu"], None, None, AGREE_MIN,
+              selection="prehead", images=len(prepared), n_z=n_z)
+
+
+def cli_host(cfg_path: Path) -> None:
+    """Host milliseconds per image of the CLI's data path at full width
+    (the producer thread's work): the features read, the FSM builds (one
+    dense (24, 24, V) uint8 FSM per z), and the collate's trim, packing and
+    exception tables."""
+    C, _, ds = cli_dataset(cfg_path)
+    ms = {k: 0.0 for k in ("item", "read_features", "collate", "pack_fsm", "fsm_to_tables")}
+    for i in range(CLI_HOST_IMAGES):
+        t0 = time.perf_counter()
+        ds._val_features[ds._image_ids[i]]
+        t1 = time.perf_counter()
+        item = ds[i]
+        t2 = time.perf_counter()
+        batch = ds.collate_fn([item])
+        t3 = time.perf_counter()
+        trimmed = [f[0] for f in batch["fsm"]]
+        for f in trimmed:
+            pack_fsm(f)
+        t4 = time.perf_counter()
+        for f in trimmed:
+            fsm_to_tables(f)
+        t5 = time.perf_counter()
+        for k, dt in (("read_features", t1 - t0), ("item", t2 - t1), ("collate", t3 - t2),
+                      ("pack_fsm", t4 - t3), ("fsm_to_tables", t5 - t4)):
+            ms[k] += 1e3 * dt / CLI_HOST_IMAGES
+    emit({"phase": "cli_host", "images": CLI_HOST_IMAGES, "n_z": C.MODEL.N_Z_SAMPLES,
+          "vocab": V, "ms_per_image": ms,
+          "fsm_build_ms_per_image": ms["item"] - ms["read_features"],
+          "states": int(batch["fsm"][0].shape[1])})
+
+
+def cli_run(cfg_path: Path, out: Path, extra: list, expected: dict, name: str) -> int:
+    """One CLI run on the card with every kernel's count reset before it;
+    checks the predictions and the launches, emits the row; returns kernel
+    A's launches."""
+    for mod in KERNELS.values():
+        mod.launches = 0
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rc = cli.main(["--config", str(cfg_path), "--output-path", str(out), *extra], stats=stats)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {k: mod.launches for k, mod in KERNELS.items()}
+    preds = json.loads(out.read_text())
+    order = [p["image_id"] for p in preds] == [1000 + i for i in range(CLI_IMAGES)
+                                               for _ in range(N_Z)]
+    schema = all(set(p) == {"image_id", "caption"} and isinstance(p["caption"], str)
+                 and "@@" not in p["caption"] for p in preds)
+    loop = stats["wall_s"] - stats["setup_s"]
+    producer = stats["item_s"] + stats["collate_s"] + stats["latents_s"]
+    emit({"phase": "cli", "run": name, "args": extra, "rc": rc, "predictions": len(preds),
+          "image_major_order": order, "schema": schema, "fallbacks": stats["fallbacks"],
+          "wall_s": wall, "images_per_s": CLI_IMAGES / wall,
+          "captions_per_s": len(preds) / wall, "setup_s": stats["setup_s"], "loop_s": loop,
+          "loop_captions_per_s": len(preds) / loop,
+          "host_wait_share_of_loop": stats["wait_s"] / loop,
+          "producer_busy_share_of_loop": producer / loop,
+          "host_s": {k: stats[k] for k in ("item_s", "collate_s", "latents_s", "wait_s",
+                                           "decode_s")},
+          "distinct_captions": len({p["caption"] for p in preds}),
+          "launches": counts, "expected_launches": expected})
+    if rc != 0 or len(preds) != CLI_IMAGES * N_Z or not order or not schema:
+        fail(f"cli ({name}) produced bad predictions")
+    if stats["fallbacks"] != 0:
+        fail(f"cli ({name}): {stats['fallbacks']} images fell back to beam search")
+    if counts != expected:
+        fail(f"cli ({name}) launch counts {counts}, expected {expected}")
+    return counts["vocab_topk_lse"]
+
+
+def phase_cli(dev: torch.device) -> int:
+    """The inference CLI: the agree row, the host path's split, then the CBS
+    and sampler runs at config 3's widths; returns kernel A's launches in
+    the CBS run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cli_agree(dev, root)
+        cfg = write_cli_world(root / "full", vocab_size=V, images=CLI_IMAGES, boxes=BOXES,
+                              steps=STEPS, model=PUBLISHED_MODEL, seed=0)
+        _, voc, _ = cli_dataset(cfg)
+        if voc.get_vocab_size() != V:
+            fail(f"cli world: vocabulary of {voc.get_vocab_size()} tokens, not {V}")
+        cli_host(cfg)
+        groups = -(-CLI_IMAGES // CLI_GROUP)
+        none = {k: 0 for k in KERNELS}
+        launches = cli_run(cfg, root / "cbs.json", ["--bf16", "--batch-images", str(CLI_GROUP)],
+                           {**none, "vocab_topk_lse": (STEPS - 1) * groups}, "cbs")
+        cli_run(cfg, root / "topp.json", ["--bf16", "--batch-images", str(CLI_GROUP),
+                                          "--sampler", "topp"], none, "sampler_topp")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1214,6 +1402,8 @@ def main() -> int:
     # they did before these were added
     phase_sample(dev, decode_state)
     phase_diverse(dev, decode_state)
+    # the inference CLI last: its prehead decodes add to kernel A's count
+    launches["vocab_topk_lse"] += phase_cli(dev)
 
     kernels = []
     for name, row in {**rows, **det_rows}.items():

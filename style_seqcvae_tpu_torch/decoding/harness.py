@@ -266,3 +266,14 @@ class DecodeHarness:
                                  top_k=top_k if method == "topk" else 0,
                                  top_p=top_p if method == "topp" else 0.0, **kw)
         return self._z_major(seqs, B, n_z)
+
+
+def detokenize(token_ids, vocabulary, boundary_index: int) -> str:
+    """Token ids -> caption string, truncated at ``@@BOUNDARY@@`` (JAX
+    ``harness.py:316-324``)."""
+    words = []
+    for t in np.asarray(token_ids).tolist():
+        if t == boundary_index:
+            break
+        words.append(vocabulary.get_token_from_index(int(t)))
+    return " ".join(words)

@@ -15,8 +15,10 @@ attribute-embedding prior.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from style_seqcvae_tpu_torch.device import resolve_device
@@ -62,17 +64,65 @@ class CaptionerConfig(NamedTuple):
         # frozen GloVe (300/600) → tied input/output embeddings
         return self.embedding_size in (300, 600)
 
+    @classmethod
+    def from_config(cls, config, vocabulary) -> "CaptionerConfig":
+        """The model fields of a ``Config`` (JAX ``captioner.py:72-94``)."""
+        _C = config
+        return cls(
+            vocab_size=vocabulary.get_vocab_size(),
+            image_feature_size=_C.MODEL.IMAGE_FEATURE_SIZE,
+            embedding_size=_C.MODEL.EMBEDDING_SIZE,
+            hidden_size=_C.MODEL.HIDDEN_SIZE,
+            attention_projection_size=_C.MODEL.ATTENTION_PROJECTION_SIZE,
+            z_space=_C.MODEL.Z_SPACE,
+            sentiment_vae=int(_C.MODEL.SENTIMENT_VAE),
+            simple_vae=bool(_C.MODEL.SIMPLE_VAE),
+            latent_embedding=_C.MODEL.LATENT_EMBEDDING,
+            latent_embedding_multip=float(_C.MODEL.LATENT_EMBEDDING_MULTIP),
+            prior_std=float(_C.MODEL.PRIOR_STD),
+            senti_prior_multip=float(_C.MODEL.SENTI_PRIOR_MULTIP),
+            max_caption_length=_C.DATA.MAX_CAPTION_LENGTH,
+            beam_size=_C.MODEL.BEAM_SIZE,
+            use_cbs=bool(_C.MODEL.USE_CBS),
+            cbs_simple=bool(_C.MODEL.CBS_SIMPLE),
+            min_constraints_to_satisfy=_C.MODEL.MIN_CONSTRAINTS_TO_SATISFY,
+            pad_index=vocabulary.unk_index,
+            boundary_index=vocabulary.boundary_index,
+        )
+
+
+def hashed_random_embeddings(vocab_tokens, dim: int, pad_index: int) -> np.ndarray:
+    """Deterministic stand-in for GloVe when its cache is absent (JAX
+    ``captioner.py:97-110``, bit for bit): each word's vector is drawn by a
+    numpy ``default_rng`` seeded with a SHA-256 of its text; the padding
+    row stays zero."""
+    out = np.zeros((len(vocab_tokens), dim), dtype=np.float32)
+    for i, tok in enumerate(vocab_tokens):
+        if i == pad_index:
+            continue
+        seed = int.from_bytes(hashlib.sha256(tok.encode()).digest()[:8], "little")
+        rng = np.random.default_rng(seed)
+        out[i] = 2.0 * rng.standard_normal(dim).astype(np.float32) - 1.0
+    return out
+
 
 def init_captioner(cfg: CaptionerConfig, *, seed: int = 0,
                    device: Optional[Union[str, torch.device]] = None,
-                   dtype=torch.float32) -> Dict[str, Any]:
+                   dtype=torch.float32,
+                   embedding_table: Optional[np.ndarray] = None) -> Dict[str, Any]:
     """Random parameters drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``. Same shapes and init ranges as the JAX package, not the
-    same numbers (use ``from_jax_params`` for those)."""
+    same numbers (use ``from_jax_params`` for those). ``embedding_table``
+    (V, E): the frozen table (GloVe or :func:`hashed_random_embeddings`),
+    taken as it is, as the JAX ``init_captioner`` takes it; without one the
+    table is drawn too."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    emb = torch.randn((cfg.vocab_size, cfg.embedding_size), generator=gen, device=dev)
-    emb[cfg.pad_index] = 0.0
+    if embedding_table is not None:
+        emb = torch.as_tensor(np.asarray(embedding_table, np.float32), device=dev)
+    else:
+        emb = torch.randn((cfg.vocab_size, cfg.embedding_size), generator=gen, device=dev)
+        emb[cfg.pad_index] = 0.0
     params: Dict[str, Any] = {"embedding": emb.to(dtype)}
     params["cell"] = init_cell(
         cfg.image_feature_size, cfg.embedding_size, cfg.hidden_size,

@@ -32,6 +32,12 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+class KernelError(RuntimeError):
+    """A kernel could not be built (no nvcc, a compile or link error) or a
+    launch reported a CUDA error. Callers that fall back on other work let
+    this one through: it means the card's code is at fault."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -39,7 +45,7 @@ def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     path = Path(home) / "bin" / "nvcc"
     if not path.exists():
-        raise RuntimeError("nvcc not found: put the CUDA toolkit on PATH or set CUDA_HOME")
+        raise KernelError("nvcc not found: put the CUDA toolkit on PATH or set CUDA_HOME")
     return str(path)
 
 
@@ -62,7 +68,8 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile and link the library unless it is already built; returns its
     path. nvcc's messages (``-Xptxas -v``: registers, shared memory, spills)
-    are kept beside it in ``build.log``. Raises with nvcc's stderr on failure."""
+    are kept beside it in ``build.log``. Raises :class:`KernelError` with
+    nvcc's stderr on failure."""
     out = library_path()
     if out.exists():
         return out
@@ -84,12 +91,12 @@ def build() -> Path:
             if proc.returncode != 0:
                 failed.append(src.name)
         if failed:
-            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(logs))
+            raise KernelError(f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(logs))
         tmp_lib = Path(tmp) / LIB_NAME
         link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
                                *map(str, objs)], capture_output=True, text=True)
         if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+            raise KernelError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         (out.parent / "build.log").write_text("\n".join(logs))
         os.replace(tmp_lib, out)
     return out
@@ -136,7 +143,8 @@ def library() -> ctypes.CDLL:
 
 
 def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
-    """Raise if a launch reported a CUDA error (``cudaGetLastError``)."""
+    """Raise :class:`KernelError` if a launch reported a CUDA error
+    (``cudaGetLastError``)."""
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+        raise KernelError(f"{name} launch failed: CUDA error {rc} "
                            f"({lib.ssc_error_string(rc).decode()})")

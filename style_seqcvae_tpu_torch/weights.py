@@ -1,6 +1,11 @@
 """Carry the JAX package's captioner and detector parameters over to the port.
 
-The input is the JAX params pytree with numpy arrays as leaves, in its own
+:func:`save_params_npz` and :func:`load_params_npz` move a parameter tree
+through one numpy ``.npz`` (each key the tree path joined by ``/``), the
+checkpoint exchange that needs neither JAX nor orbax on the reading side.
+
+The input of the converters is the JAX params pytree with numpy arrays as
+leaves (or the nested dicts that :func:`load_params_npz` returns), in its own
 nesting: a dict with ``embedding``, ``cell`` (a ``CellParams`` NamedTuple
 holding ``LSTMCellParams`` and ``AttentionParams``) and ``output_projection``
 or ``output_layer`` dicts. NamedTuple fields are read by name, so the JAX
@@ -19,6 +24,43 @@ from style_seqcvae_tpu_torch.device import resolve_device
 from style_seqcvae_tpu_torch.models.attention import AttentionParams
 from style_seqcvae_tpu_torch.models.updown_cell import CellParams
 from style_seqcvae_tpu_torch.ops.lstm import LSTMCellParams
+
+
+def save_params_npz(tree: Any, path: str) -> None:
+    """Write a parameter tree (dicts and NamedTuples, with arrays or CPU
+    tensors as leaves) to one ``.npz``, each leaf under its path joined by
+    ``/`` (``cell/attention_lstm/w``)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node: Any, prefix: str) -> None:
+        if hasattr(node, "_asdict"):                        # a NamedTuple
+            node = node._asdict()
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if "/" in str(k) or not str(k):
+                    raise ValueError(f"parameter key {k!r} cannot be a path segment")
+                walk(v, f"{prefix}{k}/")
+            return
+        if torch.is_tensor(node):
+            node = node.detach().cpu().numpy()
+        flat[prefix[:-1]] = np.asarray(node)
+
+    walk(tree, "")
+    np.savez(path, **flat)
+
+
+def load_params_npz(path: str) -> Dict[str, Any]:
+    """The nested dict of numpy arrays that :func:`save_params_npz` wrote,
+    as :func:`from_jax_params` takes it."""
+    tree: Dict[str, Any] = {}
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return tree
 
 
 def _field(node: Any, name: str) -> Any:

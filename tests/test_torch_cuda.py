@@ -7,10 +7,21 @@ without the JAX-side test configuration:
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider
 """
 
+import json
+import random
+
 import numpy as np
 import pytest
 import torch
 
+from style_seqcvae_tpu_torch.config import Config
+from style_seqcvae_tpu_torch.data.datasets import EvaluationDatasetWithConstraints
+from style_seqcvae_tpu_torch.data.vocabulary import (
+    BOUNDARY_TOKEN,
+    UNK_TOKEN,
+    Vocabulary,
+    add_constraint_words_to_vocabulary,
+)
 from style_seqcvae_tpu_torch.decoding import beam_search as tbs
 from style_seqcvae_tpu_torch.decoding import cbs as tdense
 from style_seqcvae_tpu_torch.decoding import samplers as tsam
@@ -20,6 +31,8 @@ from style_seqcvae_tpu_torch.decoding.harness import DecodeHarness, pad_tables_b
 from style_seqcvae_tpu_torch.models import captioner as tcap
 from style_seqcvae_tpu_torch.models.updown_cell import init_cell_state
 from style_seqcvae_tpu_torch.ops.kernels import nms, roi_align, topk_lse, vocab_topk_lse
+from style_seqcvae_tpu_torch.scripts import inference as cli
+from style_seqcvae_tpu_torch.utils.features_io import FeaturesWriter, pack_obj_atts
 from style_seqcvae_tpu_torch.weights import to_device
 
 # Kernel A sums each E-long f32 dot product in another order than the plain
@@ -631,3 +644,95 @@ def test_decode_sample_raises_on_cuda_misuse(dev):
     with pytest.raises(ValueError):          # a CPU generator for a GPU decode
         tsam.gumbel_beam_search(step, start, st, torch.Generator(), max_steps=T,
                                 beam_size=cfg.beam_size, end_index=1)
+
+
+# ------------------------------------------------------------------- CLI
+# A small evaluation world written by the port's own code (no h5py, no
+# YAML library): CBS in sentiment mode, 5 images, 3 z-samples.
+CLI_IMAGES, CLI_NZ, CLI_T = 5, 3, 8
+
+
+def _cli_world(d, vocab_size=300, boxes=6, feat_dim=16):
+    Vocabulary([UNK_TOKEN, BOUNDARY_TOKEN] + [f"w{i}" for i in range(vocab_size - 5)]
+               ).save_to_files(str(d / "vocab"))
+    (d / "wordforms.tsv").write_text("pos\tgood,great,nice\n")
+    rng = np.random.RandomState(0)
+    w = FeaturesWriter(str(d / "features.h5"), CLI_IMAGES)
+    for i in range(CLI_IMAGES):
+        w.write(i, 100 + i, rng.randn(boxes, feat_dim).astype(np.float32),
+                pack_obj_atts(list(range(1, boxes + 1)), [[0]] * boxes), np.zeros((0,), np.float32))
+    w.close()
+    (d / "cfg.yml").write_text(f"""
+DATA:
+  VOCABULARY: {d}/vocab
+  TRAIN_FEATURES: ''
+  INFER_FEATURES: {d}/features.h5
+  DO_LOAD_COCO: false
+  DO_LOAD_SENTICAP: false
+  SENTICAP_SENTIMENT: pos
+  MAX_CAPTION_LENGTH: {CLI_T}
+  MAX_BOXES: {boxes}
+  CBS:
+    INFER_BOXES: ''
+    CLASS_HIERARCHY: ''
+    WORDFORMS: {d}/wordforms.tsv
+MODEL:
+  IMAGE_FEATURE_SIZE: {feat_dim}
+  EMBEDDING_SIZE: 300
+  HIDDEN_SIZE: 24
+  ATTENTION_PROJECTION_SIZE: 12
+  Z_SPACE: 10
+  SENTIMENT_VAE: 1
+  SIMPLE_VAE: false
+  BEAM_SIZE: 4
+  N_Z_SAMPLES: {CLI_NZ}
+  STATE_MACHINE_PER_Z_SAMPLE: true
+  USE_CBS: true
+  CBS_SIMPLE: true
+""")
+    return d / "cfg.yml"
+
+
+@pytest.mark.cuda
+def test_cli_group_gpu_matches_cpu(dev, tmp_path):
+    """``_dispatch_group`` + ``_collect_group`` on the GPU against the same
+    calls on the CPU, on the same noise stacks. The CBS decode runs kernel A
+    (f32) on the GPU and its plain version on the CPU: a near-tie may flip a
+    beam, so 90% of the captions must be identical."""
+    C = Config(str(_cli_world(tmp_path)))
+    voc = Vocabulary.from_files(C.DATA.VOCABULARY)
+    add_constraint_words_to_vocabulary(voc, C.DATA.CBS.WORDFORMS)
+    random.seed(C.RANDOM_SEED)
+    ds = EvaluationDatasetWithConstraints.from_config(C, vocabulary=voc)
+    prepared = [(ds.collate_fn([ds[i]]), None) for i in range(CLI_IMAGES)]
+    cfg = tcap.CaptionerConfig.from_config(C, voc)
+    params = tcap.init_captioner(cfg, seed=0, device="cpu")
+    noise = np.random.RandomState(5).randn(CLI_NZ, CLI_T, CLI_IMAGES, DEC_S, cfg.beam_size,
+                                           cfg.z_space).astype(np.float32)
+    out = {}
+    for side, d, p in (("cpu", torch.device("cpu"), params), ("gpu", dev, to_device(params, dev))):
+        before = vocab_topk_lse.launches
+        kind_out = cli._dispatch_group(C, cfg, DecodeHarness(p, cfg, device=d), prepared,
+                                       noise, CLI_NZ)
+        out[side] = np.stack(cli._collect_group(C, cfg, kind_out, prepared, CLI_NZ))
+        assert vocab_topk_lse.launches - before == (CLI_T - 1 if side == "gpu" else 0)
+    assert out["gpu"].shape == (CLI_IMAGES, CLI_NZ, CLI_T)
+    assert (out["gpu"] == out["cpu"]).all(axis=-1).mean() >= 0.9
+
+
+@pytest.mark.cuda
+def test_cli_main_on_gpu(dev, tmp_path):
+    """The whole CLI on the card: groups of two and a tail image, every
+    group's CBS decode through kernel A, no fallback; and the sampler path
+    without a kernel."""
+    cfg = _cli_world(tmp_path)
+    for extra, launches in ((["--bf16"], 3 * (CLI_T - 1)), (["--sampler", "topp"], 0)):
+        stats, before = {}, vocab_topk_lse.launches
+        assert cli.main(["--config", str(cfg), "--output-path", str(tmp_path / "p.json"),
+                         "--batch-images", "2", *extra], stats=stats) == 0
+        preds = json.loads((tmp_path / "p.json").read_text())
+        assert [p["image_id"] for p in preds] == [100 + i for i in range(CLI_IMAGES)
+                                                  for _ in range(CLI_NZ)]
+        assert stats["fallbacks"] == 0
+        assert vocab_topk_lse.launches - before == launches
+

@@ -16,7 +16,7 @@ from style_seqcvae_tpu.ops.pallas.vocab_topk_lse import (
 from style_seqcvae_tpu.ops.pallas.vocab_topk_lse import (
     matmul_top_k_with_lse_xla as j_mm_topk_lse_xla,
 )
-from style_seqcvae_tpu_torch.ops.kernels import topk_lse, vocab_topk_lse
+from style_seqcvae_tpu_torch.ops.kernels import _build, topk_lse, vocab_topk_lse
 
 torch.set_num_threads(1)
 
@@ -182,3 +182,23 @@ def test_vocab_topk_lse_width_padding_is_exact(dtype):
     # widths that padding would make equal are still refused
     with pytest.raises(ValueError):
         vocab_topk_lse.matmul_top_k_with_lse(x, emb[:, :299], 10)
+
+
+def test_launch_error_code_raises_kernel_error(monkeypatch):
+    """A CUDA error code from a launch, through the wrappers' own error path
+    (``_build.check``), and a build without nvcc, raise ``KernelError``: the
+    inference CLI lets it through instead of falling back image by image."""
+
+    class Lib:
+        def ssc_error_string(self, rc):
+            return b"an illegal memory access was encountered"
+
+    assert issubclass(_build.KernelError, RuntimeError)
+    _build.check(Lib(), 0, "vocab_topk_lse")                         # success: no raise
+    with pytest.raises(_build.KernelError, match="vocab_topk_lse launch failed: CUDA "
+                                                 "error 700 .an illegal memory access"):
+        _build.check(Lib(), 700, "vocab_topk_lse")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent-cuda-home")
+    with pytest.raises(_build.KernelError, match="nvcc not found"):
+        _build._nvcc()

@@ -46,7 +46,10 @@ def test_port_imports_no_jax():
                  "models.detector.resnet", "models.detector.rpn",
                  "models.detector.faster_rcnn", "models.detector.extract",
                  "decoding.beam_search", "decoding.cbs", "decoding.fsm", "decoding.select",
-                 "decoding.samplers", "evaluation.metrics"):
+                 "decoding.samplers", "evaluation.metrics", "config", "data.tokenizer",
+                 "data.vocabulary", "data.config_attrib_selection", "data.readers",
+                 "data.latents", "data.datasets", "data.prefetch", "decoding.constraint_filter",
+                 "utils.features_io", "scripts.inference"):
         assert "style_seqcvae_tpu_torch." + name in modules
     code = "\n".join([
         "import sys",
