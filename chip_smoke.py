@@ -78,6 +78,26 @@ one JSON line per phase as it goes:
    the CBS run (``--bf16 --batch-images 16``: 960 captions, kernel A 19
    times a group, no fallback) and a ``--sampler topp`` run (no kernel),
    each with its wall time, images/s, captions/s and the host's share;
+13. ``train_agree``: small f32 train steps (TF32 off), the GPU against the
+   CPU on the same params, batch and z-noise, in prior modes 0, 1 and 2:
+   the metrics of 3 steps, each leaf's gradient norm and every leaf after
+   the third, across the decoder's freeze boundary (no gradient at the
+   first step on either side, one at the second);
+14. ``train``: BASELINE.json config 2 (the published model, 100 boxes, 21
+   teacher-forced steps) at batch 32 and 150, f32 and bf16 compute: ms a
+   step (median of 18 single steps and its range; of 3 chained calls of
+   K = 10), captions/s, peak memory, the card's time a step and its busy
+   share from a ``torch.profiler`` trace of 3 steps, the loss over ~50
+   steps on a fixed batch (finite and falling), the kernels' launches (0);
+   batch 32 with the
+   decoder frozen (the schedule's first phase) and through the device
+   corpus; then ``train_bf16_vs_f32``, the two first losses;
+15. ``train_cli``: the train CLI on a world the port writes (COCO and
+   Senticap captions, features.h5, the vocabulary, the published MODEL and
+   OPTIM sections at 12 iterations): 6 iterations with checkpoints every
+   3, a resume from ``checkpoint_6`` to 12, StepTimer's data and step ms
+   and the wall time of each run, then the inference CLI decoding 16 images
+   from ``checkpoint_12`` (kernel A);
 
 then the ``{"kernels": [...]}`` summary, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -86,6 +106,7 @@ non-zero before the last line. Exits non-zero at once without a GPU.
 
 from __future__ import annotations
 
+import gc
 import json
 import random
 import re
@@ -146,8 +167,17 @@ from style_seqcvae_tpu_torch.models.detector.rpn import (
 )
 from style_seqcvae_tpu_torch.ops.kernels import _build, nms, roi_align, topk_lse, vocab_topk_lse
 from style_seqcvae_tpu_torch.scripts import inference as cli
+from style_seqcvae_tpu_torch.scripts import train as train_cli
+from style_seqcvae_tpu_torch.training.checkpointing import read_checkpoint
+from style_seqcvae_tpu_torch.training.trainer import (
+    create_train_state,
+    make_chained_train_step,
+    make_corpus_chained_train_step,
+    make_corpus_train_step,
+    make_train_step,
+)
 from style_seqcvae_tpu_torch.utils.features_io import FeaturesWriter, pack_obj_atts
-from style_seqcvae_tpu_torch.weights import to_device
+from style_seqcvae_tpu_torch.weights import named_leaves, to_device
 
 # flagship decode (bench.py:54-55, :424): reference run dims and grid
 V, E, H, P, Z, F, BOXES, STEPS = 10500, 600, 900, 768, 150, 2048, 100, 20
@@ -1222,6 +1252,15 @@ def phase_e2e(dev: torch.device, det_state, decode_state) -> None:
         fail(f"e2e launch counts {counts}, expected {expected}")
 
 
+def kernel_counts() -> dict:
+    return {k: mod.launches for k, mod in KERNELS.items()}
+
+
+def reset_kernel_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
 def write_cli_world(root: Path, *, vocab_size: int, images: int, boxes: int, steps: int,
                     model: dict, seed: int) -> Path:
     """The inference CLI's inputs, written by the port's own code: a
@@ -1317,15 +1356,14 @@ def cli_run(cfg_path: Path, out: Path, extra: list, expected: dict, name: str) -
     """One CLI run on the card with every kernel's count reset before it;
     checks the predictions and the launches, emits the row; returns kernel
     A's launches."""
-    for mod in KERNELS.values():
-        mod.launches = 0
+    reset_kernel_counts()
     stats = {}
     torch.cuda.synchronize()
     t0 = time.time()
     rc = cli.main(["--config", str(cfg_path), "--output-path", str(out), *extra], stats=stats)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = {k: mod.launches for k, mod in KERNELS.items()}
+    counts = kernel_counts()
     preds = json.loads(out.read_text())
     order = [p["image_id"] for p in preds] == [1000 + i for i in range(CLI_IMAGES)
                                                for _ in range(N_Z)]
@@ -1375,6 +1413,347 @@ def phase_cli(dev: torch.device) -> int:
     return launches
 
 
+# captioner training (BASELINE.json config 2, bench.py:325-423): the
+# published model (configs/style_seqcvae_senticap.yml: E 600 tied, H 900,
+# P 768, z 150, F 2048, mode 1, SIMPLE_VAE false) teacher-forced over 20
+# caption tokens (21 steps) and 100 boxes, at bench.py's batch 32 and the
+# published OPTIM.BATCH_SIZE 150
+TRAIN_BATCHES = (32, 150)
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_K, TRAIN_CHAINS = 2, 18, 10, 3
+# the decoder trains on every timed step (the schedule's second phase, from
+# EPOCH_START_DECODER_TRAINING on); FROZEN_OVERRIDES times the first
+# phase's steps, where it trains one step in 30
+ACTIVE_OVERRIDES = ["OPTIM.EPOCH_START_DECODER_TRAINING", "0"]
+FROZEN_OVERRIDES = ["OPTIM.EPOCH_START_DECODER_TRAINING", "100000"]
+# the device corpus: images in the on-device features table
+CORPUS_IMAGES = 512
+# the bf16 step's first loss against the f32 step's on the same params,
+# batch and noise: bf16 keeps 8 bits, the 10,500-way log-softmax and the
+# products round in bf16 (the CPU tests hold the port's bf16 to JAX's bf16
+# within 1e-2)
+BF16_FIRST_LOSS_REL = 2e-2
+# train_agree: the GPU against the CPU in f32 without TF32; the products
+# sum in other orders (and the untied embedding's gradient by atomics), so
+# the losses agree to 1e-5, each leaf's gradient norm to 1e-4 and each
+# leaf after 3 SGD steps to 1e-5 of its norm
+TRAIN_AGREE_TOL = {"metrics": 1e-5, "grad_norm": 1e-4, "params": 1e-5}
+TRAIN_AGREE_CASES = {"mode0_untied": dict(sentiment_vae=0, embedding_size=16),
+                     "mode1_tied": dict(sentiment_vae=1, embedding_size=300),
+                     "mode2_glove_tied": dict(sentiment_vae=2, embedding_size=300)}
+# decoder inactive at iteration 1, active at 2 and 3: the schedule's boundary
+AGREE_OVERRIDES = ["OPTIM.LR", "0.05", "OPTIM.EPOCH_START_DECODER_TRAINING", "1",
+                   "OPTIM.BEFORE_UPDATE_DECODER_EVERY", "30"]
+
+
+def train_batch(cfg: CaptionerConfig, batch: int, boxes: int, seed: int, dev) -> dict:
+    """A seeded training batch on ``dev``: features with padding boxes,
+    captions of 8 to T tokens padded with the pad index, sentiment ±1."""
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(batch, boxes, cfg.image_feature_size).astype(np.float32)
+    feats[:, boxes - boxes // 10:] = 0.0
+    T = cfg.max_caption_length
+    toks = rng.randint(2, cfg.vocab_size, (batch, T)).astype(np.int32)
+    for i, n in enumerate(rng.randint(min(8, T), T + 1, batch)):
+        toks[i, n:] = cfg.pad_index
+    out = {"image_features": feats, "caption_tokens": toks,
+           "sentiment": rng.choice([-1.0, 1.0], (batch, 1)).astype(np.float32)}
+    if cfg.sentiment_vae == 2:
+        out["obj_att_embeds"] = rng.randn(batch, boxes, cfg.z_space).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def phase_train_agree(dev: torch.device) -> None:
+    """Small f32 train steps, the GPU against the CPU on the same params,
+    batch and z-noise: the metrics of 3 steps, each leaf's gradient norm
+    after the first (the decoder inactive: no gradient on either side) and
+    the second (active), and every leaf after the third."""
+    for case, kw in TRAIN_AGREE_CASES.items():
+        cfg = CaptionerConfig(vocab_size=50, image_feature_size=64, hidden_size=48,
+                              attention_projection_size=32, z_space=16, simple_vae=False,
+                              max_caption_length=10, **kw)
+        config = Config(config_override=AGREE_OVERRIDES)
+        params = init_captioner(cfg, seed=3, device="cpu")
+        states = {side: create_train_state(params, config, cfg, seed=0, device=d)
+                  for side, d in (("cpu", torch.device("cpu")), ("gpu", dev))}
+        step = make_train_step(cfg, config.MODEL.KLD_WEIGHT)
+        rng = np.random.RandomState(11)
+        worst = {"metrics": 0.0, "grad_norm": 0.0, "params": 0.0}
+        decoder_grads = []
+        for it in range(3):
+            batch = {k: v.cpu() for k, v in train_batch(cfg, 8, 10, it, "cpu").items()}
+            eps = rng.randn(cfg.max_caption_length + 1, 8, cfg.z_space).astype(np.float32)
+            metrics = {}
+            for side, state in states.items():
+                states[side], metrics[side] = step(state, batch, eps=eps)
+            for name in metrics["cpu"]:
+                worst["metrics"] = max(worst["metrics"], abs(
+                    metrics["gpu"][name].item() / metrics["cpu"][name].item() - 1))
+            grads = {side: {p: t.grad for p, t in named_leaves(s.params)}
+                     for side, s in states.items()}
+            decoder_grads.append({side: any(g is not None for p, g in grads[side].items()
+                                            if "decoder_lstm" in p) for side in grads})
+            for path, g in grads["cpu"].items():
+                if (g is None) != (grads["gpu"][path] is None):
+                    fail(f"train_agree {case}: {path} has a gradient on one side only")
+                if g is not None:
+                    worst["grad_norm"] = max(worst["grad_norm"], abs(
+                        grads["gpu"][path].norm().item() / g.norm().item() - 1))
+        for (path, t_cpu), (_, t_gpu) in zip(named_leaves(states["cpu"].params),
+                                             named_leaves(states["gpu"].params)):
+            worst["params"] = max(worst["params"], rel_err(t_gpu, t_cpu))
+        boundary = [d["gpu"] for d in decoder_grads] == [False, True, True] and \
+            [d["cpu"] for d in decoder_grads] == [False, True, True]
+        emit({"phase": "train_agree", "case": case, "steps": 3, "max_rel_err": worst,
+              "tolerance": TRAIN_AGREE_TOL, "decoder_grad_by_step": decoder_grads})
+        if not boundary:
+            fail(f"train_agree {case}: the freeze schedule differs: {decoder_grads}")
+        bad = {k: v for k, v in worst.items() if not v <= TRAIN_AGREE_TOL[k]}
+        if bad:
+            fail(f"train_agree {case}: the GPU disagrees with the CPU: {bad}")
+
+
+def train_cfg() -> CaptionerConfig:
+    return CaptionerConfig(vocab_size=V, image_feature_size=F, embedding_size=E, hidden_size=H,
+                           attention_projection_size=P, z_space=Z, sentiment_vae=1,
+                           simple_vae=False, max_caption_length=STEPS)
+
+
+def timed_steps(fn, n: int) -> list:
+    """Host wall milliseconds of ``n`` calls of ``fn``, each synchronised."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def median_range(ms: list) -> tuple:
+    s = sorted(ms)
+    return s[len(s) // 2], [s[0], s[-1]]
+
+
+def profile_steps(fn, n: int) -> dict:
+    """``n`` calls of ``fn`` under ``torch.profiler``: the card's kernel and
+    copy time a call, their count and the host's kernel-launch calls (None
+    where the trace holds no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum("LaunchKernel" in e.name for e in prof.events())
+    if not evs:
+        return {"device_ms_per_step": None, "device_ops_per_step": None,
+                "kernel_launch_calls_per_step": None}
+    return {"device_ms_per_step": sum(e.time_range.elapsed_us() for e in evs) / 1e3 / n,
+            "device_ops_per_step": len(evs) / n, "kernel_launch_calls_per_step": launches / n}
+
+
+def train_row(cfg, params, batch_size: int, dtype, dev, overrides, chained=True,
+              corpus=False, profiled=False) -> dict:
+    """One configuration's single steps (and chained K-step calls) on a
+    fixed batch: ms a step, captions/s, peak memory, the losses; with
+    ``profiled``, the card's time a step from a profiler trace of 3 more
+    steps and its busy share of the median step."""
+    gc.collect()                    # the previous row's state (optimizer cycles)
+    config = Config(config_override=overrides)
+    kld_weight = config.MODEL.KLD_WEIGHT
+    compute = None if dtype == torch.float32 else dtype
+    state = create_train_state(params, config, cfg, seed=1, device=dev)
+    batch = train_batch(cfg, batch_size, BOXES, seed=batch_size, dev=dev)
+    if corpus:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        table = torch.randn(CORPUS_IMAGES, BOXES, F, generator=gen, device=dev).to(dtype)
+        idx = torch.randint(0, CORPUS_IMAGES, (batch_size,), generator=gen, device=dev)
+        batch = {"caption_tokens": batch["caption_tokens"], "sentiment": batch["sentiment"],
+                 "feat_idx": idx}
+        step1 = make_corpus_train_step(cfg, kld_weight, compute)
+        stepk = make_corpus_chained_train_step(cfg, kld_weight, compute)
+        single = lambda: step1(state, table, batch)  # noqa: E731
+        many = lambda b: stepk(state, table, b)  # noqa: E731
+    else:
+        step1 = make_train_step(cfg, kld_weight, compute)
+        stepk = make_chained_train_step(cfg, kld_weight, compute)
+        single = lambda: step1(state, batch)  # noqa: E731
+        many = lambda b: stepk(state, b)  # noqa: E731
+    losses = []
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first = timed_steps(lambda: losses.append(single()[1]["loss"]), 1)[0]
+    warm = timed_steps(lambda: losses.append(single()[1]["loss"]), TRAIN_WARMUP - 1)
+    ms = timed_steps(lambda: losses.append(single()[1]["loss"]), TRAIN_TIMED)
+    row = {"batch": batch_size, "dtype": str(dtype).split(".")[-1],
+           "decoder_trains": overrides is ACTIVE_OVERRIDES, "device_corpus": corpus,
+           "first_step_ms": first, "warm_ms": warm}
+    med, rng_ = median_range(ms)
+    row.update(single_ms=med, single_ms_range=rng_, single_captions_per_s=batch_size / med * 1e3)
+    if chained:
+        stacked = {k: v.unsqueeze(0).expand((TRAIN_K,) + tuple(v.shape)) for k, v in
+                   batch.items()}
+        kms = timed_steps(lambda: losses.extend(many(stacked)[1]["loss"].unbind()), TRAIN_CHAINS)
+        kmed, krng = median_range([m / TRAIN_K for m in kms])
+        row.update(chained_k=TRAIN_K, chained_ms=kmed, chained_ms_range=krng,
+                   chained_captions_per_s=batch_size / kmed * 1e3)
+    if profiled:
+        prof = profile_steps(lambda: losses.append(single()[1]["loss"]), 3)
+        busy = prof["device_ms_per_step"]
+        row.update(prof, device_busy_share=None if busy is None else busy / med)
+    loss = [x.item() for x in losses]
+    counts = kernel_counts()
+    row.update(steps=len(loss), loss_first=loss[0], loss_last=loss[-1],
+               loss_finite=bool(np.isfinite(loss).all()),
+               loss_falling=bool(np.mean(loss[-5:]) < np.mean(loss[:5])),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+    emit({"phase": "train", **row})
+    if not (row["loss_finite"] and row["loss_falling"]):
+        fail(f"train: the loss is not finite and falling on a fixed batch: {loss}")
+    if any(counts.values()):
+        fail(f"train: a kernel ran in the training step: {counts}")
+    del state
+    return row
+
+
+def phase_train(dev: torch.device) -> None:
+    """BASELINE.json config 2 at full width on the card: batch 32 and 150, f32
+    (TF32 off) and bf16 compute, single steps and chained K = 10, the first
+    phase's frozen decoder at batch 32, and the device corpus; then the
+    bf16 step's first loss against the f32 step's."""
+    cfg = train_cfg()
+    params = init_captioner(cfg, seed=0, device=dev)
+    rows = []
+    for batch_size in TRAIN_BATCHES:
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(train_row(cfg, params, batch_size, dtype, dev, ACTIVE_OVERRIDES,
+                                  profiled=True))
+    rows.append(train_row(cfg, params, 32, torch.float32, dev, FROZEN_OVERRIDES, chained=False))
+    for dtype in (torch.float32, torch.bfloat16):
+        rows.append(train_row(cfg, params, 32, dtype, dev, ACTIVE_OVERRIDES, corpus=True))
+    first = {(r["batch"], r["dtype"]): r["loss_first"] for r in rows[:4]}
+    for b in TRAIN_BATCHES:
+        rel = abs(first[(b, "bfloat16")] / first[(b, "float32")] - 1)
+        emit({"phase": "train_bf16_vs_f32", "batch": b, "first_loss_rel": rel,
+              "tolerance": BF16_FIRST_LOSS_REL})
+        if rel > BF16_FIRST_LOSS_REL:
+            fail(f"train: the bf16 step's first loss is {rel} off the f32 step's")
+
+
+# the train CLI on a world the port writes: the published config's MODEL
+# and OPTIM sections (batch 150) at 12 iterations, checkpoints every 3; the
+# first run stops at 6, the second resumes from checkpoint_6; then the
+# inference CLI decodes 16 images from the final checkpoint (CBS, bf16)
+TRAIN_CLI_IMAGES, TRAIN_CLI_ITERS, TRAIN_CLI_DECODE = 64, 12, 16
+PUBLISHED_OPTIM = dict(BATCH_SIZE=150, NUM_ITERATIONS=TRAIN_CLI_ITERS, LR=0.015, MOMENTUM=0.9,
+                       WEIGHT_DECAY=0.001, CLIP_GRADIENTS=12.5,
+                       EPOCH_START_DECODER_TRAINING=40000, BEFORE_UPDATE_DECODER_EVERY=30)
+
+
+def write_train_cli_world(root: Path) -> Path:
+    """The train CLI's inputs, written by the port's own code: the inference
+    world (vocabulary of V tokens with the wordforms, features.h5 of 100 x
+    2048, the published MODEL section), COCO captions (5 an image) and
+    Senticap captions over the train, val and test splits, and a config with
+    the published OPTIM section; returns the config's path."""
+    cfg = write_cli_world(root, vocab_size=V, images=TRAIN_CLI_IMAGES, boxes=BOXES, steps=STEPS,
+                          model=PUBLISHED_MODEL, seed=5)
+    words = [f"w{i}" for i in range(V - 2 - len(CLI_FORMS))] + list(CLI_FORMS)
+    rng = np.random.RandomState(6)
+
+    def sentence():
+        return " ".join(words[j] for j in rng.randint(0, len(words), rng.randint(6, STEPS + 3)))
+
+    anns = [{"id": k, "image_id": 1000 + int(i), "caption": sentence()}
+            for k, i in enumerate(np.repeat(np.arange(TRAIN_CLI_IMAGES), 5))]
+    (root / "captions.json").write_text(json.dumps({"annotations": anns}))
+    senti = [{"filename": f"COCO_val2014_{1000 + i:012d}.jpg",
+              "split": ("train", "val", "test")[i % 3],
+              "sentences": [{"raw": sentence(), "sentiment": i % 2}]}
+             for i in range(0, TRAIN_CLI_IMAGES, 2)]
+    (root / "senticap.json").write_text(json.dumps({"images": senti}))
+    text = cfg.read_text().replace("  TRAIN_FEATURES: ''\n", "").replace(
+        "  DO_LOAD_COCO: false\n", "").replace("  DO_LOAD_SENTICAP: false\n", "")
+    text = text.replace("DATA:\n", "\n".join([
+        "PRINT_EVERY_N_BATCHES: 1", "DATA:", f"  TRAIN_FEATURES: {root / 'features.h5'}",
+        f"  TRAIN_CAPTIONS: {root / 'captions.json'}",
+        f"  SENTICAP_CAPTIONS: {root / 'senticap.json'}", "  DO_LOAD_COCO: true",
+        "  DO_LOAD_SENTICAP: true", ""]), 1)
+    text += "OPTIM:\n" + "".join(f"  {k}: {v}\n" for k, v in PUBLISHED_OPTIM.items())
+    (root / "train.yml").write_text(text)
+    return root / "train.yml"
+
+
+def train_cli_run(cfg: Path, ser: Path, extra: list) -> dict:
+    reset_kernel_counts()
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rc = train_cli.main(["--config", str(cfg), "--serialization-dir", str(ser),
+                         "--checkpoint-every", "3", *extra], stats=stats)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = kernel_counts()
+    if rc != 0 or any(counts.values()):
+        fail(f"train_cli: rc {rc}, kernel launches {counts}")
+    return dict(stats, wall_s=wall, launches=counts)
+
+
+def phase_train_cli(dev: torch.device) -> int:
+    """The train CLI (``python -m style_seqcvae_tpu_torch.scripts.train``) as a
+    user runs it, a resume, then the inference CLI on the final checkpoint
+    directory; returns kernel A's launches in the inference run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cfg = write_train_cli_world(root / "world")
+        ser = root / "run"
+        first = train_cli_run(cfg, ser, ["--max-iterations", str(TRAIN_CLI_ITERS // 2)])
+        ckpts = sorted(p.name for p in ser.iterdir() if p.name.startswith("checkpoint_"))
+        second = train_cli_run(cfg, ser, ["--start-from-checkpoint",
+                                          f"checkpoint_{TRAIN_CLI_ITERS // 2}"])
+        rows = [json.loads(line) for line in (ser / "metrics.jsonl").read_text().splitlines()]
+        steps = [r["step"] for r in rows]
+        finite = all(np.isfinite(r["loss"]) for r in rows)
+        reset_kernel_counts()
+        out = root / "preds.json"
+        t0 = time.time()
+        rc = cli.main(["--config", str(cfg), "--output-path", str(out), "--bf16",
+                       "--batch-images", str(CLI_GROUP), "--max-images", str(TRAIN_CLI_DECODE),
+                       "--checkpoint-path", str(ser), "--checkpoint-name",
+                       f"checkpoint_{TRAIN_CLI_ITERS}", "--config-override",
+                       "DATA.DO_LOAD_COCO", "false", "DATA.DO_LOAD_SENTICAP", "false"])
+        torch.cuda.synchronize()
+        decode_s = time.time() - t0
+        counts = kernel_counts()
+        preds = json.loads(out.read_text())
+        restored = read_checkpoint(str(ser / f"checkpoint_{TRAIN_CLI_ITERS}"))
+        emit({"phase": "train_cli", "batch": PUBLISHED_OPTIM["BATCH_SIZE"],
+              "iterations": TRAIN_CLI_ITERS, "first_run": first, "resumed_run": second,
+              "checkpoints_after_first": ckpts, "metrics_steps": steps, "loss_finite": finite,
+              "losses": [r["loss"] for r in rows],
+              "checkpoint_step": int(restored["opt_state"]["step"]),
+              "inference": {"rc": rc, "predictions": len(preds), "seconds": decode_s,
+                            "launches": counts}})
+        if steps != list(range(1, TRAIN_CLI_ITERS + 1)) or not finite:
+            fail(f"train_cli: metrics steps {steps}, finite {finite}")
+        if second["start"] != TRAIN_CLI_ITERS // 2 + 1 or \
+                int(restored["opt_state"]["step"]) != TRAIN_CLI_ITERS:
+            fail("train_cli: the resume did not continue from its checkpoint")
+        want = {k: 0 for k in KERNELS}
+        want["vocab_topk_lse"] = (STEPS - 1) * -(-TRAIN_CLI_DECODE // CLI_GROUP)
+        if rc != 0 or len(preds) != TRAIN_CLI_DECODE * N_Z or counts != want:
+            fail(f"train_cli: inference from the checkpoint: rc {rc}, {len(preds)} "
+                 f"predictions, launches {counts} (expected {want})")
+    return counts["vocab_topk_lse"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1402,8 +1781,14 @@ def main() -> int:
     # they did before these were added
     phase_sample(dev, decode_state)
     phase_diverse(dev, decode_state)
-    # the inference CLI last: its prehead decodes add to kernel A's count
+    # the inference CLI: its prehead decodes add to kernel A's count
     launches["vocab_topk_lse"] += phase_cli(dev)
+    # captioner training last, so that every earlier path runs as before;
+    # its steps launch none of the kernels; the train CLI's closing
+    # inference run adds to A's count
+    phase_train_agree(dev)
+    phase_train(dev)
+    launches["vocab_topk_lse"] += phase_train_cli(dev)
 
     kernels = []
     for name, row in {**rows, **det_rows}.items():

@@ -1,8 +1,14 @@
-"""Evaluation datasets of the captioner (copy of the evaluation half of
+"""Training and evaluation datasets of the captioner (copy of
 ``style_seqcvae_tpu/data/datasets.py:1-675``).
 
 Behavioral mirrors of updown-baseline/updown/data/datasets.py:
 
+* :class:`TrainingDataset` (:18-202): COCO + Senticap composition with 20×
+  Senticap oversampling when mixed (:50-51), Senticap-test leakage removal
+  (:72-76), attribute-presence and feature-presence filtering (:78-92),
+  tokenize/truncate/pad to ``max_caption_length`` with ``@@UNKNOWN@@``
+  (:153-161); ``feature_table`` and ``obj_att_embed_table`` for the train
+  step's device corpus.
 * :class:`EvaluationDataset` (:205-368): image-id driven, Senticap test ids
   under ``DO_LOAD_SENTICAP``, hard-coded object-name fixups (:252-263),
   sentiment from config.
@@ -17,7 +23,7 @@ Behavioral mirrors of updown-baseline/updown/data/datasets.py:
 Batches are fixed-shape numpy (image features padded to
 ``DATA.MAX_BOXES``). Candidates are drawn from the ``random`` module unless
 an ``rng`` is given, so a run seeded as the JAX CLI seeds it draws the same
-ones. ``TrainingDataset`` is not here yet (ROADMAP A6).
+ones.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from style_seqcvae_tpu_torch.data.readers import (
     CocoAttributesReader,
     CocoCaptionsReader,
     ConstraintBoxesReader,
+    ExpertReader,
     SenticapReader,
     obj_atts_id2string,
 )
@@ -83,6 +90,267 @@ def _obj_id2name_from_reader(reader) -> list:
     for i, n in m.items():
         out[int(i)] = n
     return out
+
+
+class TrainingDataset:
+    """Caption items for training (JAX ``data/datasets.py:89-348``): the COCO
+    captions, with Senticap's train and val splits added 20 times over when
+    both are loaded, or Senticap alone; the expert captions; Senticap's test
+    images removed; optionally only images with attributes; captions whose
+    image has no feature row dropped and counted."""
+
+    def __init__(
+        self,
+        vocabulary: Vocabulary,
+        captions_jsonpath: str = "",
+        senticap_jsonpath: str = "",
+        expert_jsonpath: str = "",
+        do_load_coco: bool = True,
+        do_load_senticap: bool = False,
+        image_features_h5path: str = "",
+        image_features_h5path_valid: str = "",
+        attribs_dir_path: str = "",
+        use_obj_att_preds: bool = False,
+        att_pred_thresh: float = 0.3,
+        remove_samples_without_attribs: bool = False,
+        max_caption_length: int = 20,
+        max_boxes: int = 100,
+        in_memory: bool = False,
+        sentiment: Optional[str] = None,
+        obj_id2name: Optional[List[str]] = None,
+    ):
+        self._vocabulary = vocabulary
+        self._max_caption_length = max_caption_length
+        self._max_boxes = max_boxes
+        self.sentiment = sentiment
+        self.use_obj_att_preds = use_obj_att_preds
+        self.att_pred_thresh = att_pred_thresh
+        self.obj_id2name = obj_id2name or []
+        # Device-resident corpus mode (train.py --device-corpus): __getitem__
+        # skips the per-item feature read entirely — the whole feature table
+        # ships to HBM once via feature_table() and the train step gathers
+        # rows by index on device, so per-step host work is tokens-only.
+        self.skip_feature_read = False
+
+        self._features = (FeaturesReader(image_features_h5path, in_memory,
+                                         use_obj_att_preds)
+                          if image_features_h5path else None)
+        self._features_valid = (FeaturesReader(image_features_h5path_valid, in_memory,
+                                               use_obj_att_preds)
+                               if image_features_h5path_valid else None)
+
+        self._captions: List = []
+        if do_load_coco and captions_jsonpath:
+            self._captions = list(CocoCaptionsReader(captions_jsonpath)._captions)
+            if do_load_senticap and senticap_jsonpath:
+                senti = SenticapReader(senticap_jsonpath, train_split=True,
+                                       val_split=True, sentiment=None)
+                for _ in range(20):  # 20× oversampling (datasets.py:50-51)
+                    self._captions.extend(senti._captions)
+        elif do_load_senticap and senticap_jsonpath:
+            self._captions = list(SenticapReader(senticap_jsonpath, train_split=True,
+                                                 val_split=True, sentiment=None)._captions)
+
+        if expert_jsonpath:
+            expert = ExpertReader(expert_jsonpath)
+            self._captions.extend(expert._captions)
+
+        if senticap_jsonpath:
+            # remove Senticap-TEST images from training (datasets.py:72-76)
+            test_ids = SenticapReader(senticap_jsonpath, test_split=True)._image_ids
+            self._captions = [x for x in self._captions if x[0] not in test_ids]
+
+        self.coco_attributes_reader: Optional[CocoAttributesReader] = None
+        if attribs_dir_path:
+            self.coco_attributes_reader = CocoAttributesReader(attribs_dir_path)
+            if not self.obj_id2name:
+                self.obj_id2name = _obj_id2name_from_reader(
+                    self.coco_attributes_reader)
+            if remove_samples_without_attribs:
+                with_atts = set(self.coco_attributes_reader.image_ids)
+                self._captions = [x for x in self._captions if x[0] in with_atts]
+        if self._features is not None:
+            # drop captions whose image has no feature row IN EITHER file
+            # (previously only under the attribs branch): the reference
+            # reader silently DEFAULTS missing ids (readers.py:128-137);
+            # here the skip is explicit and counted — e.g. Senticap
+            # val-split images that were never run through feat_extract
+            avail = set(self._features.image_ids)
+            if self._features_valid is not None:
+                avail |= set(self._features_valid.image_ids)
+            before = len(self._captions)
+            self._captions = [x for x in self._captions if x[0] in avail]
+            if len(self._captions) != before:
+                print(f"dropped {before - len(self._captions)} caption(s) "
+                      "whose image has no feature row (reference "
+                      "readers.py:128-137 would silently default them)")
+
+    @classmethod
+    def from_config(cls, config, vocabulary, in_memory=False, obj_id2name=None):
+        _C = config
+        return cls(
+            vocabulary=vocabulary,
+            image_features_h5path=_C.DATA.TRAIN_FEATURES,
+            image_features_h5path_valid=_C.DATA.INFER_FEATURES,
+            captions_jsonpath=_C.DATA.TRAIN_CAPTIONS,
+            senticap_jsonpath=_C.DATA.SENTICAP_CAPTIONS,
+            expert_jsonpath=_C.DATA.EXPERT_CAPTIONS,
+            do_load_coco=_C.DATA.DO_LOAD_COCO,
+            do_load_senticap=_C.DATA.DO_LOAD_SENTICAP,
+            attribs_dir_path=_C.DATA.COCO_ATTRIBS_OBJS,
+            use_obj_att_preds=_C.DATA.USE_OBJ_ATT_PREDS,
+            att_pred_thresh=_C.DATA.ATT_PRED_THRESH,
+            remove_samples_without_attribs=_C.DATA.REMOVE_SAMPLES_WITHOUT_ATTRIBS,
+            max_caption_length=_C.DATA.MAX_CAPTION_LENGTH,
+            max_boxes=_C.DATA.MAX_BOXES,
+            in_memory=in_memory,
+            sentiment=_C.DATA.SENTICAP_SENTIMENT,
+            obj_id2name=obj_id2name,
+        )
+
+    def __len__(self):
+        return len(self._captions)
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        entry = self._captions[index]
+        if len(entry) == 3:
+            image_id, caption, sentiment = entry
+            if sentiment == 0:
+                sentiment = -1
+        else:
+            image_id, caption = entry
+            sentiment = 0
+
+        image_features, obj_atts = None, None
+        if self._features is not None and not self.skip_feature_read:
+            try:
+                image_features, obj_atts = self._features[image_id]
+            except KeyError:
+                image_features, obj_atts = self._features_valid[image_id]
+
+        if self.coco_attributes_reader is not None and obj_atts is not None:
+            obj_atts = obj_atts_id2string(
+                self.obj_id2name, self.coco_attributes_reader.attrib_names,
+                obj_atts, self.coco_attributes_reader.avail_obj_names,
+                self.att_pred_thresh, self.use_obj_att_preds)
+
+        image_attributes = None
+        if self.coco_attributes_reader is not None:
+            try:
+                image_attributes = self.coco_attributes_reader[image_id]
+            except KeyError:
+                image_attributes = None
+
+        tokens = [self._vocabulary.get_token_index(c) for c in caption]
+        tokens = tokens[: self._max_caption_length]
+        tokens.extend([self._vocabulary.unk_index]
+                      * (self._max_caption_length - len(tokens)))
+
+        return {"image_id": image_id, "image_features": image_features,
+                "caption_tokens": tokens, "image_attributes": image_attributes,
+                "sentiment": sentiment, "obj_atts": obj_atts}
+
+    def collate_fn(self, batch_list: List[Dict[str, Any]]) -> Dict[str, Any]:
+        batch: Dict[str, Any] = {
+            "image_id": np.asarray([x["image_id"] for x in batch_list], np.int64),
+            "caption_tokens": np.asarray([x["caption_tokens"] for x in batch_list],
+                                         np.int32),
+            "sentiment": np.asarray([[x["sentiment"]] for x in batch_list],
+                                    np.float32),
+            "image_attributes": [x["image_attributes"] for x in batch_list],
+        }
+        if batch_list[0]["image_features"] is not None:
+            batch["image_features"] = collate_image_features(
+                [x["image_features"] for x in batch_list], self._max_boxes)
+        batch["obj_atts"] = _collate_obj_atts(batch_list)
+        return batch
+
+    def feature_table(self):
+        """The full feature corpus as one dense array, for the train step's
+        device corpus (train CLI ``--device-corpus``): the table goes to the
+        card once and each step gathers its rows by index, in place of
+        shipping batch · boxes · F floats through the host every step.
+
+        Returns ``(table, row_of)``: ``table`` is (num_images, max_boxes,
+        feat_dim) float32 zero-padded over boxes, ``row_of`` maps image_id
+        → table row."""
+        if self._features is None:
+            raise ValueError("dataset has no features reader")
+        readers = [self._features]
+        if self._features_valid is not None:
+            readers.append(self._features_valid)
+        ids, feats0 = [], None
+        for r in readers:
+            ids.extend(r.image_ids)
+        row_of = {iid: i for i, iid in enumerate(dict.fromkeys(ids))}
+        for r in readers:
+            feats0, _ = r[r.image_ids[0]]
+            break
+        table = np.zeros((len(row_of), self._max_boxes, feats0.shape[-1]),
+                         np.float32)
+        written = set()
+        for r in readers:
+            for iid in r.image_ids:
+                if iid in written:
+                    # ids in BOTH files keep the train reader's features —
+                    # __getitem__'s precedence (valid only on KeyError)
+                    continue
+                written.add(iid)
+                f, _ = r[iid]
+                n = min(f.shape[0], self._max_boxes)
+                table[row_of[iid], :n] = f[:n]
+        return table, row_of
+
+    def obj_att_embed_table(self, latent_dict, row_of) -> np.ndarray:
+        """(num_images, max_boxes, z_space) mode-2 prior-embedding table in
+        :meth:`feature_table` row order, so that the device corpus gathers
+        both tables by the same ``feat_idx``. The host-side equivalent of
+        the reference's per-batch ``translate_obj_atts2obj_means``
+        (updown_captioner.py:509-532), computed once for the corpus."""
+        out = np.zeros((len(row_of), self._max_boxes, latent_dict.z_space),
+                       np.float32)
+        for iid, row in row_of.items():
+            try:
+                _, obj_atts = self._features[iid]
+            except KeyError:
+                _, obj_atts = self._features_valid[iid]
+            if self.coco_attributes_reader is not None and obj_atts is not None:
+                obj_atts = obj_atts_id2string(
+                    self.obj_id2name, self.coco_attributes_reader.attrib_names,
+                    obj_atts, self.coco_attributes_reader.avail_obj_names,
+                    self.att_pred_thresh, self.use_obj_att_preds)
+            out[row] = latent_dict.translate_obj_atts(
+                [obj_atts or []], self._max_boxes)[0]
+        return out
+
+    def batches(self, batch_size: int, rng: Optional[random.Random] = None,
+                process_shard: Optional[tuple] = None):
+        """Infinite shuffled batch generator (updown/utils/common.py:7-27
+        ``cycle`` semantics); partial trailing batches are dropped (one
+        batch shape throughout).
+
+        ``process_shard=(index, count)``: every process shuffles the same
+        global order (same seeded ``rng``) and takes a disjoint stride of
+        it, so ``count`` processes each yielding ``batch_size`` rows jointly
+        cover one ``batch_size·count`` global batch with no duplicates."""
+        shard_index, shard_count = process_shard or (0, 1)
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"bad process_shard ({shard_index}, {shard_count})")
+        if batch_size * shard_count > len(self):
+            # range() below would be empty and the while-True would spin
+            # forever without yielding — indistinguishable from a hang
+            raise ValueError(
+                f"batch_size {batch_size} x {shard_count} process(es) "
+                f"exceeds dataset size {len(self)}; no full batch can ever "
+                "be formed")
+        rng = rng or random.Random(0)
+        while True:
+            order = list(range(len(self)))
+            rng.shuffle(order)
+            order = order[shard_index::shard_count]
+            for start in range(0, len(order) - batch_size + 1, batch_size):
+                idx = order[start:start + batch_size]
+                yield self.collate_fn([self[i] for i in idx])
 
 
 class EvaluationDataset:

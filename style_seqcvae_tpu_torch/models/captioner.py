@@ -1,5 +1,6 @@
-"""Style-SeqCVAE captioner: config, parameters and the inference step
-(counterpart of ``style_seqcvae_tpu/models/captioner.py``).
+"""Style-SeqCVAE captioner: config, parameters, the teacher-forced training
+forward and the inference step (counterpart of
+``style_seqcvae_tpu/models/captioner.py``).
 
 Parameters are a plain dict: ``embedding`` (V, E), ``cell``
 (:class:`CellParams`) and, for the tied head (E in {300, 600}),
@@ -33,6 +34,7 @@ from style_seqcvae_tpu_torch.models.updown_cell import (
     condition_size,
     image_feature_stats,
     init_cell,
+    init_cell_state,
 )
 from style_seqcvae_tpu_torch.ops.lstm import gate_math
 
@@ -106,6 +108,31 @@ def hashed_random_embeddings(vocab_tokens, dim: int, pad_index: int) -> np.ndarr
     return out
 
 
+def load_glove_embeddings(vocabulary, dim: int, glove_txt_paths, pad_index: int) -> np.ndarray:
+    """The frozen embedding table from GloVe-style text files (JAX
+    ``captioner.py:113-134``). ``glove_txt_paths`` is a list of (path,
+    subdim) whose subdims sum to ``dim`` (GloVe 300 + dependency 300 for the
+    published 600); a word missing from a file keeps its
+    :func:`hashed_random_embeddings` vector there; the padding row is zero."""
+    tokens = [vocabulary.get_token_from_index(i) for i in range(vocabulary.get_vocab_size())]
+    wanted = set(tokens)
+    pieces = []
+    for path, subdim in glove_txt_paths:
+        table = hashed_random_embeddings(tokens, subdim, pad_index)
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                parts = line.rstrip().split(" ")
+                if parts[0] in wanted and len(parts) == subdim + 1:
+                    table[vocabulary.get_token_index(parts[0])] = np.asarray(parts[1:],
+                                                                             dtype=np.float32)
+        pieces.append(table)
+    out = np.concatenate(pieces, axis=1)
+    if out.shape[1] != dim:
+        raise ValueError(f"GloVe pieces sum to {out.shape[1]} columns, not {dim}")
+    out[pad_index] = 0.0
+    return out
+
+
 def init_captioner(cfg: CaptionerConfig, *, seed: int = 0,
                    device: Optional[Union[str, torch.device]] = None,
                    dtype=torch.float32,
@@ -167,6 +194,103 @@ def base_prior(cfg: CaptionerConfig, batch_size: int, sentiment: Optional[torch.
     prior_var = torch.full((batch_size, cfg.z_space), float(cfg.prior_std) ** 2,
                            device=device)
     return prior_mean, prior_var
+
+
+def add_boundary_tokens(caption_tokens: torch.Tensor, pad_index: int,
+                        boundary_index: int) -> torch.Tensor:
+    """(B, T) → (B, T+2): the boundary prepended and written at position
+    ``lengths + 1`` (JAX ``captioner.py:203-216``, AllenNLP's
+    ``add_sentence_boundary_token_ids``). ``lengths`` counts the tokens
+    that are not ``pad_index``, wherever they stand: the pad index is the
+    vocabulary's UNK, so an UNK inside a caption counts as padding, is
+    written as padding, and the closing boundary lands at ``lengths + 1``,
+    over a real token when the UNK was not at the end."""
+    B, T = caption_tokens.shape
+    mask = caption_tokens != pad_index
+    lengths = mask.sum(dim=1)
+    out = torch.full((B, T + 2), pad_index, dtype=caption_tokens.dtype,
+                     device=caption_tokens.device)
+    out[:, 1:T + 1] = torch.where(mask, caption_tokens, torch.full_like(caption_tokens,
+                                                                          pad_index))
+    out[:, 0] = boundary_index
+    positions = torch.arange(T + 2, device=caption_tokens.device)[None, :]
+    return torch.where(positions == (lengths + 1)[:, None],
+                       torch.full_like(out, boundary_index), out)
+
+
+def _per_step_kld(cfg: CaptionerConfig, q_mean, q_log_var, prior_mean, prior_log_var):
+    """Both KL closed forms of the reference (JAX ``captioner.py:219-226``):
+    against N(0, 1) in mode 0, else against N(prior_mean, exp(prior_log_var))
+    with a 1e-5 floor on the prior's variance."""
+    if cfg.sentiment_vae == 0:
+        return -0.5 * torch.sum(1 + q_log_var - q_mean ** 2 - torch.exp(q_log_var), dim=-1)
+    prior_var = torch.exp(prior_log_var)
+    q_var = torch.exp(q_log_var)
+    kld = (1 + q_log_var - prior_log_var
+           - ((q_mean - prior_mean) ** 2 + q_var) / (prior_var + 1e-5))
+    return -0.5 * torch.sum(kld, dim=-1)
+
+
+def train_forward(params: Dict[str, Any], cfg: CaptionerConfig, batch: Dict[str, torch.Tensor],
+                  rng: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Teacher-forced training forward (JAX ``captioner.py:240-317``): a
+    Python loop over the ``T + 1`` steps of the boundary-wrapped caption in
+    place of the ``lax.scan``.
+
+    ``batch``: ``image_features`` (B, N, F), ``caption_tokens`` (B, T) padded
+    with ``cfg.pad_index``, optional ``sentiment`` (B, 1) and
+    ``obj_att_embeds`` (B, N, z), all on one device. The z-noise is ``eps``,
+    a (T+1, B, z) stack, when given, else drawn from the ``torch.Generator``
+    ``rng`` step by step. Returns the per-sequence ``loss`` (the
+    length-scaled masked cross entropy, ``lengths · Σ(nll·mask) / (lengths +
+    1e-13)``) and ``kld`` (the masked per-step KL summed over steps)."""
+    image_features = batch["image_features"]
+    sentiment = batch.get("sentiment")
+    obj_att_embeds = batch.get("obj_att_embeds")
+    B = image_features.shape[0]
+
+    tokens = add_boundary_tokens(batch["caption_tokens"].long(), cfg.pad_index,
+                                 cfg.boundary_index)
+    tokens_mask = tokens != cfg.pad_index
+    num_steps = tokens.shape[1] - 1
+    if eps is None and rng is None:
+        raise TypeError("train_forward needs eps or a torch.Generator")
+
+    avg_feats, feats_mask = image_feature_stats(image_features)
+    proj_feats = project_image_features(params["cell"].attention, image_features)
+    prior_mean, prior_var = base_prior(cfg, B, sentiment, image_features.device)
+    prior_log_var = torch.log(prior_var)
+
+    state = init_cell_state((B,), cfg.hidden_size, device=image_features.device,
+                            dtype=image_features.dtype)
+    token_embs = params["embedding"][tokens[:, :-1].T]        # (T+1, B, E), one gather
+    logits, klds = [], []
+    for t in range(num_steps):
+        h_dec, state, q_mean, q_log_var, p_mean, _ = cell_step(
+            params["cell"], token_embs[t], state,
+            image_features=image_features,
+            projected_image_features=proj_feats,
+            averaged_image_features=avg_feats,
+            image_features_mask=feats_mask,
+            training=True, rng=rng, eps=None if eps is None else eps[t],
+            sentiment_vae=cfg.sentiment_vae, simple_vae=cfg.simple_vae,
+            latent_embedding=cfg.latent_embedding,
+            sentiment=sentiment, obj_att_embeds=obj_att_embeds,
+            prior_mean=prior_mean, prior_var=prior_var)
+        logits.append(output_logits(params, cfg, h_dec))
+        klds.append(_per_step_kld(cfg, q_mean, q_log_var, p_mean, prior_log_var))
+    logits_bt = torch.stack(logits, dim=1)                    # (B, T+1, V)
+    kld_t = torch.stack(klds, dim=1)                          # (B, T+1)
+    klds_masked = kld_t * tokens_mask[:, 1:].to(kld_t.dtype)
+
+    targets = tokens[:, 1:]
+    target_mask = tokens_mask[:, 1:].float()
+    log_probs = torch.log_softmax(logits_bt, dim=-1)
+    nll = -torch.gather(log_probs, -1, targets[..., None])[..., 0]
+    lengths = target_mask.sum(dim=1)
+    per_seq = (nll * target_mask).sum(dim=1) / (lengths + 1e-13)
+    return {"loss": lengths * per_seq, "kld": klds_masked.sum(dim=1)}
 
 
 class DecodeContext(NamedTuple):

@@ -1,10 +1,12 @@
 """Variational UpDown cell: parameters, state, the per-decode helpers and the
-unfolded inference step :func:`cell_step` (counterpart of
+unfolded step :func:`cell_step`, its posterior (training) and prior
+(inference) branches (counterpart of
 ``style_seqcvae_tpu/models/updown_cell.py``). The decodes run the folded
 step, :func:`captioner.make_optimized_step_fn`."""
 
 from __future__ import annotations
 
+from functools import reduce
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -118,17 +120,24 @@ def cell_step(
     prior_var: Optional[torch.Tensor] = None,       # (B, z) or broadcastable
     eps: Optional[torch.Tensor] = None,             # z-noise
 ):
-    """One step of the cell with z drawn from the prior (the inference
-    branch). Returns ``(h_dec, new_state, q_mean, q_log_var, prior_mean,
-    attn_w)``, ``q_*`` being the prior z was drawn from.
+    """One step of the cell (JAX ``models/updown_cell.py:146-245``). Returns
+    ``(h_dec, new_state, q_mean, q_log_var, prior_mean, attn_w)``, ``q_*``
+    being the distribution z was drawn from: the posterior when
+    ``training`` (the encoder LSTM over ``[attended, h1, h_dec, c?]``, then
+    ``fc_mean`` and ``fc_log_var``), else the prior.
 
-    The z-noise is ``eps`` when given, else ``rng`` when it is a floating
-    tensor (the searches thread their noise rows through that slot), else a
-    draw from the ``torch.Generator`` ``rng``. Inputs are concatenated in
-    the token embedding's dtype."""
-    if training:
-        raise NotImplementedError("cell_step(training=True), the posterior branch, is not "
-                                  "ported yet (ROADMAP A6, captioner training)")
+    The z-noise is ``eps`` when given, else a draw from the
+    ``torch.Generator`` ``rng``; at inference ``rng`` may also be a
+    floating tensor (the searches thread their noise rows through that
+    slot), which training refuses. At inference the inputs are
+    concatenated in the token embedding's dtype. In training the encoder's
+    and the decoder's inputs are concatenated in their promoted dtype, as
+    ``jnp.concatenate`` does: under bf16 compute ``q_mean`` (an f32 product
+    plus a bf16 bias) is f32, so z and the decoder LSTM's whole input stay
+    f32."""
+    if training and torch.is_tensor(rng):
+        raise TypeError("cell_step(training=True) takes eps or a torch.Generator, "
+                        "not a noise tensor in rng")
     grid = tuple(token_embedding.shape[:-1])
     extra = len(grid) - 1
     dtype = token_embedding.dtype
@@ -136,8 +145,9 @@ def cell_step(
     def bcast(x):  # (B, D) → (B, 1..., D) for the inner grid dims
         return x.reshape((x.shape[0],) + (1,) * extra + tuple(x.shape[1:]))
 
-    def cat(parts):
-        return torch.cat([p.to(dtype).expand(grid + (p.shape[-1],)) for p in parts], dim=-1)
+    def cat(parts, promote=False):
+        to = reduce(torch.promote_types, [p.dtype for p in parts]) if promote else dtype
+        return torch.cat([p.to(to).expand(grid + (p.shape[-1],)) for p in parts], dim=-1)
 
     attn_in = cat([token_embedding, bcast(averaged_image_features), state.h1, state.h_dec])
     h1, c1 = lstm_cell(params.attention_lstm, attn_in, state.h1, state.c1)
@@ -163,7 +173,18 @@ def cell_step(
     else:  # mode 2, glove conditioning
         c = prior_mean
 
-    mean = prior_mean
+    if training:
+        enc_in = cat([attended, h1, state.h_dec] + ([c] if c is not None else []),
+                     promote=True)
+        h_enc, c_enc = lstm_cell(params.encoder_lstm, enc_in, state.h_enc, state.c_enc)
+        # f32 products plus the bias, as JAX's preferred_element_type=f32
+        q_mean = torch.matmul(h_enc.float(), params.fc_mean_w.float()) + params.fc_mean_b
+        q_log_var = (torch.matmul(h_enc.float(), params.fc_log_var_w.float())
+                     + params.fc_log_var_b)
+        mean, var = q_mean, torch.exp(q_log_var)
+    else:
+        h_enc, c_enc = state.h_enc, state.c_enc
+        mean = prior_mean
     if eps is None and torch.is_tensor(rng) and rng.is_floating_point():
         eps = rng
     if eps is not None:
@@ -174,8 +195,10 @@ def cell_step(
         raise TypeError("cell_step needs eps, a floating rng tensor or a torch.Generator")
     z = eps * torch.sqrt(var) + mean
 
-    dec_in = cat([attended, h1, state.h_dec] + ([c] if c is not None else []) + [z])
+    dec_in = cat([attended, h1, state.h_dec] + ([c] if c is not None else []) + [z],
+                 promote=training)
     h_dec, c_dec = lstm_cell(params.decoder_lstm, dec_in, state.h_dec, state.c_dec)
-    new_state = CellState(h1=h1, c1=c1, h_enc=state.h_enc, c_enc=state.c_enc,
-                          h_dec=h_dec, c_dec=c_dec)
+    new_state = CellState(h1=h1, c1=c1, h_enc=h_enc, c_enc=c_enc, h_dec=h_dec, c_dec=c_dec)
+    if training:
+        return h_dec, new_state, q_mean, q_log_var, prior_mean, attn_w
     return h_dec, new_state, mean, torch.log(var), prior_mean, attn_w

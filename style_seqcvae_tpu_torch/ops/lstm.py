@@ -50,8 +50,14 @@ def gate_math(gates: torch.Tensor, h: torch.Tensor, c: torch.Tensor
 
 def lstm_cell(params: LSTMCellParams, x: torch.Tensor, h: torch.Tensor,
               c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One LSTM step. x: (..., input_size); h, c: (..., hidden_size)."""
-    xh = torch.cat([x, h], dim=-1)
+    """One LSTM step. x: (..., input_size); h, c: (..., hidden_size).
+
+    As JAX's ``lstm_cell`` (``ops/lstm.py:47-66``), the input, the hidden
+    state and the weight meet in their promoted dtype (an f32 input, as the
+    training step's decoder input under bf16 compute, multiplies the bf16
+    weight in f32) and the gates are cast to ``h``'s dtype before the bias."""
+    dtype = torch.promote_types(torch.promote_types(x.dtype, h.dtype), params.w.dtype)
+    xh = torch.cat([x.to(dtype), h.to(dtype)], dim=-1)
     # one matmul (f32 accumulation inside), gate math in the working dtype
-    gates = torch.matmul(xh, params.w) + params.b
+    gates = torch.matmul(xh, params.w.to(dtype)).to(h.dtype) + params.b
     return gate_math(gates, h, c)

@@ -16,8 +16,11 @@ GPU. The CBS decode takes ``DecodeHarness.decode_cbs``'s default
 selection, ``"prehead"``: kernel A (``ops/kernels/vocab_topk_lse.py``) on
 the card.
 
-Parameters: ``--checkpoint-path`` names a ``.npz`` of the JAX parameter
-tree (``weights.save_params_npz``); without one they are drawn by
+Parameters: ``--checkpoint-path DIR --checkpoint-name NAME`` reads the
+params of the checkpoint ``DIR/NAME`` that the port's train CLI wrote (as
+the JAX CLI reads its own orbax checkpoints); a ``--checkpoint-path`` that
+is a file names a ``.npz`` of the JAX parameter tree
+(``weights.save_params_npz``); without either they are drawn by
 ``init_captioner`` on the CPU, with ``hashed_random_embeddings`` for a tied
 head, and moved to the device, so that a CPU run and a card run use the
 same weights. z-noise comes from a ``torch.Generator`` seeded with
@@ -60,7 +63,13 @@ from style_seqcvae_tpu_torch.models.captioner import (
     init_captioner,
 )
 from style_seqcvae_tpu_torch.ops.kernels._build import KernelError
-from style_seqcvae_tpu_torch.weights import from_jax_params, load_params_npz, to_device
+from style_seqcvae_tpu_torch.training.checkpointing import read_checkpoint
+from style_seqcvae_tpu_torch.weights import (
+    cast_floats,
+    from_jax_params,
+    load_params_npz,
+    to_device,
+)
 
 # failures that a per-image retry would only hide: the card's code or memory
 _NO_FALLBACK = (KernelError, torch.cuda.OutOfMemoryError)
@@ -70,9 +79,11 @@ parser = argparse.ArgumentParser(description=__doc__,
 parser.add_argument("--config", required=True)
 parser.add_argument("--config-override", nargs="*", default=[])
 parser.add_argument("--checkpoint-path", default="",
-                    help="a .npz of the JAX parameter tree (weights.save_params_npz); "
-                         "orbax checkpoint directories wait for ROADMAP A6")
-parser.add_argument("--checkpoint-name", default="checkpoint_best")
+                    help="the train CLI's serialization directory (with "
+                         "--checkpoint-name), or a .npz of the JAX parameter tree "
+                         "(weights.save_params_npz)")
+parser.add_argument("--checkpoint-name", default="checkpoint_best",
+                    help="the checkpoint directory in --checkpoint-path to read")
 parser.add_argument("--output-path", required=True)
 parser.add_argument("--in-memory", action="store_true")
 parser.add_argument("--cpu", action="store_true",
@@ -101,15 +112,6 @@ parser.add_argument("--bf16", action="store_true",
                          "accumulators)")
 
 
-def _cast(params: Any, dtype: torch.dtype) -> Any:
-    """``params`` with every f32 tensor cast to ``dtype``."""
-    if torch.is_tensor(params):
-        return params.to(dtype) if params.dtype == torch.float32 else params
-    if isinstance(params, dict):
-        return {k: _cast(v, dtype) for k, v in params.items()}
-    return type(params)(*[_cast(v, dtype) for v in params])
-
-
 def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = None) -> int:
     """Run the CLI on ``argv`` (``sys.argv[1:]`` when None); returns the
     exit code. ``stats``, when given, receives the run's counts and host
@@ -126,11 +128,6 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
     if _A.num_data > 1:
         raise NotImplementedError("--num-data > 1: multi-GPU decoding is not ported yet "
                                   "(ROADMAP A10)")
-    if _A.checkpoint_path and os.path.isdir(_A.checkpoint_path):
-        raise NotImplementedError(
-            f"--checkpoint-path {_A.checkpoint_path!r} is a directory: orbax checkpoints "
-            "wait for captioner training (ROADMAP A6); pass a .npz written by "
-            "weights.save_params_npz")
     device = resolve_device("cpu" if _A.cpu else None)
     t_start = time.perf_counter()
     st: Dict[str, float] = {k: 0.0 for k in ("item_s", "collate_s", "latents_s", "wait_s",
@@ -153,7 +150,10 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
         dataset = EvaluationDataset.from_config(_C, in_memory=_A.in_memory)
 
     model_cfg = CaptionerConfig.from_config(_C, vocabulary)
-    if _A.checkpoint_path:
+    if _A.checkpoint_path and os.path.isdir(_A.checkpoint_path):
+        tree = read_checkpoint(os.path.join(_A.checkpoint_path, _A.checkpoint_name))
+        params = from_jax_params(tree["params"], device="cpu")
+    elif _A.checkpoint_path:
         params = from_jax_params(load_params_npz(_A.checkpoint_path), device="cpu")
     else:
         tokens = [vocabulary.get_token_from_index(i)
@@ -174,7 +174,7 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
                 _C.DATA.SWN_SCORES, model_cfg.z_space, model_cfg.latent_embedding_multip)
 
     decode_dtype = torch.bfloat16 if _A.bf16 else torch.float32
-    params = to_device(_cast(params, decode_dtype), device)
+    params = to_device(cast_floats(params, decode_dtype), device)
     harness = DecodeHarness(params, model_cfg, device=device)
     sampler_spec = None
     if _A.sampler:

@@ -2,7 +2,9 @@
 
 :func:`save_params_npz` and :func:`load_params_npz` move a parameter tree
 through one numpy ``.npz`` (each key the tree path joined by ``/``), the
-checkpoint exchange that needs neither JAX nor orbax on the reading side.
+checkpoint exchange that needs neither JAX nor orbax on the reading side;
+:func:`to_jax_params` hands the port's (trained) params back in the JAX
+tree's layout.
 
 The input of the converters is the JAX params pytree with numpy arrays as
 leaves (or the nested dicts that :func:`load_params_npz` returns), in its own
@@ -15,7 +17,7 @@ compute the same thing.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,11 +28,10 @@ from style_seqcvae_tpu_torch.models.updown_cell import CellParams
 from style_seqcvae_tpu_torch.ops.lstm import LSTMCellParams
 
 
-def save_params_npz(tree: Any, path: str) -> None:
-    """Write a parameter tree (dicts and NamedTuples, with arrays or CPU
-    tensors as leaves) to one ``.npz``, each leaf under its path joined by
-    ``/`` (``cell/attention_lstm/w``)."""
-    flat: Dict[str, np.ndarray] = {}
+def named_leaves(tree: Any) -> List[Tuple[str, Any]]:
+    """The leaves of a parameter tree (dicts and NamedTuples) with their
+    paths joined by ``/`` (``cell/attention_lstm/w``), in the tree's order."""
+    out: List[Tuple[str, Any]] = []
 
     def walk(node: Any, prefix: str) -> None:
         if hasattr(node, "_asdict"):                        # a NamedTuple
@@ -41,11 +42,36 @@ def save_params_npz(tree: Any, path: str) -> None:
                     raise ValueError(f"parameter key {k!r} cannot be a path segment")
                 walk(v, f"{prefix}{k}/")
             return
-        if torch.is_tensor(node):
-            node = node.detach().cpu().numpy()
-        flat[prefix[:-1]] = np.asarray(node)
+        out.append((prefix[:-1], node))
 
     walk(tree, "")
+    return out
+
+
+def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
+    """``tree`` (dicts and NamedTuples of tensors) with ``fn`` applied to
+    every leaf, its structure kept."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return type(tree)(*[tree_map(fn, v) for v in tree])
+
+
+def cast_floats(tree: Any, dtype: Optional[torch.dtype]) -> Any:
+    """``tree`` with every f32 leaf cast to ``dtype`` (``None``: unchanged);
+    autograd carries gradients back through the casts."""
+    if dtype is None:
+        return tree
+    return tree_map(lambda t: t.to(dtype) if t.dtype == torch.float32 else t, tree)
+
+
+def save_params_npz(tree: Any, path: str) -> None:
+    """Write a parameter tree (dicts and NamedTuples, with arrays or CPU
+    tensors as leaves) to one ``.npz``, each leaf under its path joined by
+    ``/`` (``cell/attention_lstm/w``)."""
+    flat = {k: np.asarray(v.detach().cpu().numpy() if torch.is_tensor(v) else v)
+            for k, v in named_leaves(tree)}
     np.savez(path, **flat)
 
 
@@ -102,6 +128,23 @@ def from_jax_params(tree: Dict[str, Any], *,
     return params
 
 
+def to_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's captioner params → nested dicts of numpy arrays in the JAX
+    tree's layout and names (``cell`` a dict of ``CellParams``' fields),
+    the inverse of :func:`from_jax_params`: the JAX package rebuilds its
+    tree from them, and :func:`save_params_npz` writes them as it writes
+    the JAX tree."""
+
+    def conv(node: Any) -> Any:
+        if torch.is_tensor(node):
+            return node.detach().cpu().numpy().copy()
+        if hasattr(node, "_asdict"):
+            node = node._asdict()
+        return {k: conv(v) for k, v in node.items()}
+
+    return conv(params)
+
+
 def from_jax_detector_params(tree: Dict[str, Any], *,
                              device: Optional[Union[str, torch.device]] = None,
                              dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
@@ -132,8 +175,4 @@ def from_jax_detector_params(tree: Dict[str, Any], *,
 
 def to_device(params: Any, device: Union[str, torch.device]) -> Any:
     """A copy of ``params`` (dicts and NamedTuples of tensors) on ``device``."""
-    if torch.is_tensor(params):
-        return params.to(device)
-    if isinstance(params, dict):
-        return {k: to_device(v, device) for k, v in params.items()}
-    return type(params)(*[to_device(v, device) for v in params])
+    return tree_map(lambda t: t.to(device), params)

@@ -736,3 +736,72 @@ def test_cli_main_on_gpu(dev, tmp_path):
         assert stats["fallbacks"] == 0
         assert vocab_topk_lse.launches - before == launches
 
+
+
+# training: the card's f32 train step (TF32 off) against the CPU's on the
+# same params, batch and z-noise; products sum in other orders, so the
+# metrics agree to 1e-5 and each leaf after the steps to 1e-5 of its norm
+TRAIN_METRIC_RTOL = 1e-5
+TRAIN_PARAM_REL = 1e-5
+
+
+def _train_setup(sentiment_vae=1, embedding_size=300):
+    from style_seqcvae_tpu_torch.config import Config
+
+    cfg = tcap.CaptionerConfig(vocab_size=40, image_feature_size=32, embedding_size=embedding_size,
+                               hidden_size=24, attention_projection_size=16, z_space=8,
+                               sentiment_vae=sentiment_vae, simple_vae=False,
+                               max_caption_length=7)
+    config = Config(config_override=["OPTIM.LR", "0.05", "OPTIM.EPOCH_START_DECODER_TRAINING",
+                                     "1", "OPTIM.BEFORE_UPDATE_DECODER_EVERY", "30"])
+    rng = np.random.RandomState(0)
+    batches = []
+    for _ in range(3):
+        toks = rng.randint(2, 40, (6, 7)).astype(np.int32)
+        toks[0, 4:] = 0
+        b = {"image_features": rng.randn(6, 5, 32).astype(np.float32),
+             "caption_tokens": toks,
+             "sentiment": rng.choice([-1.0, 1.0], (6, 1)).astype(np.float32)}
+        if sentiment_vae == 2:
+            b["obj_att_embeds"] = rng.randn(6, 5, 8).astype(np.float32)
+        batches.append((b, rng.randn(8, 6, 8).astype(np.float32)))
+    return cfg, config, tcap.init_captioner(cfg, seed=1, device="cpu"), batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,emb", [(0, 16), (1, 300), (2, 300)])
+def test_train_step_gpu_matches_cpu(dev, mode, emb):
+    from style_seqcvae_tpu_torch.training.trainer import create_train_state, make_train_step
+    from style_seqcvae_tpu_torch.weights import named_leaves
+
+    cfg, config, params, batches = _train_setup(mode, emb)
+    step = make_train_step(cfg, config.MODEL.KLD_WEIGHT)
+    states = [create_train_state(params, config, cfg, seed=0, device=d) for d in ("cpu", dev)]
+    for b, eps in batches:
+        out = [step(s, b, eps=eps) for s in states]
+        states = [o[0] for o in out]
+        for name in out[0][1]:
+            torch.testing.assert_close(out[1][1][name].cpu(), out[0][1][name],
+                                       rtol=TRAIN_METRIC_RTOL, atol=0)
+    for (path, c), (_, g) in zip(named_leaves(states[0].params), named_leaves(states[1].params)):
+        err = ((g.detach().cpu() - c.detach()).norm() / c.detach().norm()).item()
+        assert err <= TRAIN_PARAM_REL, f"{path}: off by {err:.3g}"
+
+
+@pytest.mark.cuda
+def test_train_step_bf16_finite_and_frozen_leaves_have_no_grad(dev):
+    from style_seqcvae_tpu_torch.training.optimizer import make_labels
+    from style_seqcvae_tpu_torch.training.trainer import create_train_state, make_train_step
+    from style_seqcvae_tpu_torch.weights import named_leaves
+
+    cfg, config, params, batches = _train_setup()
+    state = create_train_state(params, config, cfg, seed=0, device=dev)
+    step = make_train_step(cfg, config.MODEL.KLD_WEIGHT, compute_dtype=torch.bfloat16)
+    labels = make_labels(state.params, freeze_embedding=True)
+    for it, (b, _) in enumerate(batches, start=1):
+        state, m = step(state, b)
+        assert all(torch.isfinite(v).item() for v in m.values())
+        frozen = {"never"} | ({"decoder"} if it == 1 else set())
+        for path, p in named_leaves(state.params):
+            assert p.dtype == torch.float32 and p.is_cuda
+            assert (p.grad is None) == (labels[path] in frozen), (it, path)

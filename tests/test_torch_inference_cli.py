@@ -274,7 +274,8 @@ def test_port_cli_fallback_and_what_it_raises(tmp_path, capsys, monkeypatch):
         P.main(base + ["--model", "baseline"])
     with pytest.raises(NotImplementedError, match="A10"):
         P.main(base + ["--num-data", "2"])
-    with pytest.raises(NotImplementedError, match="A6"):
+    # a directory without the named checkpoint of the port's layout
+    with pytest.raises(ValueError, match="not a checkpoint of the port"):
         P.main(base + ["--checkpoint-path", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

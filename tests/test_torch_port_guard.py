@@ -14,10 +14,13 @@ import pytest
 import torch
 
 import style_seqcvae_tpu_torch
+from style_seqcvae_tpu_torch.config import Config
 from style_seqcvae_tpu_torch.decoding.harness import DecodeHarness
 from style_seqcvae_tpu_torch.models.captioner import CaptionerConfig, init_captioner
 from style_seqcvae_tpu_torch.models.detector.extract import extract_device_features
 from style_seqcvae_tpu_torch.models.detector.faster_rcnn import DetectorConfig, init_detector
+from style_seqcvae_tpu_torch.scripts import train as train_cli
+from style_seqcvae_tpu_torch.training.trainer import create_train_state, make_train_step
 from style_seqcvae_tpu_torch.weights import from_jax_detector_params, from_jax_params
 
 torch.set_num_threads(1)
@@ -49,7 +52,9 @@ def test_port_imports_no_jax():
                  "decoding.samplers", "evaluation.metrics", "config", "data.tokenizer",
                  "data.vocabulary", "data.config_attrib_selection", "data.readers",
                  "data.latents", "data.datasets", "data.prefetch", "decoding.constraint_filter",
-                 "utils.features_io", "scripts.inference"):
+                 "utils.features_io", "scripts.inference", "scripts.train",
+                 "training.optimizer", "training.trainer", "training.checkpointing",
+                 "utils.logging", "utils.torch_import"):
         assert "style_seqcvae_tpu_torch." + name in modules
     code = "\n".join([
         "import sys",
@@ -70,7 +75,7 @@ def test_port_imports_no_jax():
     assert res.stdout.strip() == "ok"
 
 
-def test_entry_points_refuse_cpu_fallback():
+def test_entry_points_refuse_cpu_fallback(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
     cfg = CaptionerConfig(vocab_size=10, image_feature_size=4, embedding_size=300,
@@ -94,6 +99,22 @@ def test_entry_points_refuse_cpu_fallback():
     assert toks.device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_jax_params({"embedding": params["embedding"].numpy()})
+
+    # training: the state, and so every train step, is on the GPU unless
+    # the caller asks for the CPU; the train CLI likewise without --cpu
+    config = Config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(params, config, cfg, seed=0)
+    state = create_train_state(params, config, cfg, seed=0, device="cpu")
+    batch = {"image_features": np.ones((2, 3, 4), np.float32),
+             "caption_tokens": np.full((2, 3), 2, np.int32),
+             "sentiment": np.ones((2, 1), np.float32)}
+    state, metrics = make_train_step(cfg, 750.0)(state, batch)
+    assert metrics["loss"].device.type == "cpu" and state.step == 1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--config", str(ROOT / "configs" / "style_seqcvae_senticap.yml"),
+                        "--serialization-dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
 
 
 def test_detector_entry_points_refuse_cpu_fallback():
