@@ -98,6 +98,27 @@ one JSON line per phase as it goes:
    3, a resume from ``checkpoint_6`` to 12, StepTimer's data and step ms
    and the wall time of each run, then the inference CLI decoding 16 images
    from ``checkpoint_12`` (kernel A);
+16. ``baseline_agree``: the UpDown baseline family (``--model baseline``),
+   small f32 decodes on the GPU against the CPU on shared seeded noise
+   (``decode_cbs`` through logprob, ``decode_beam``, ``decode_sample`` with
+   each sampler; token-identical), then 3 train steps (TF32 off) with the
+   tied and the untied head: the metrics, each leaf's gradient norm and
+   every leaf after the third step;
+17. ``baseline_decode``: the baseline at config 3's widths without z, bf16,
+   ``decode_cbs`` (logprob) at batch 16 and 320 x 1 z and ``decode_beam``
+   at 320 x 1 z: first and warm seconds, captions/s, the output checks;
+18. ``baseline_train``: the baseline at config 2's widths, batch 32 and 150,
+   f32 and bf16: ms a step (median of 18 and its range), captions/s, peak
+   memory, the card's time, ops and busy share from a profiler trace of 3
+   steps, the loss over 50 steps on a fixed batch (finite and falling);
+19. ``baseline_cli`` and ``eval``: the train CLI at ``--model baseline`` on
+   train_cli's world (12 iterations, checkpoints every 6), the inference
+   CLI at ``--model baseline --bf16`` from its ``checkpoint_12`` over 16
+   images on the card and on the CPU (no more fallbacks on the card), then
+   the eval CLI (``style_seqcvae_tpu_torch.scripts.eval``) on those
+   predictions and on train_cli's 320 cvae captions: seconds, every metric
+   (finite, each oracle at or above its mean over z) and which METEOR ran.
+   The kernels launch 0 times in phases 16-19;
 
 then the ``{"kernels": [...]}`` summary, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -106,7 +127,9 @@ non-zero before the last line. Exits non-zero at once without a GPU.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import random
 import re
@@ -139,7 +162,9 @@ from style_seqcvae_tpu_torch.decoding.cbs_fast import (
 )
 from style_seqcvae_tpu_torch.decoding.fsm import pack_fsm
 from style_seqcvae_tpu_torch.decoding.harness import SAMPLERS, DecodeHarness, pad_tables_batch
+from style_seqcvae_tpu_torch.evaluation import metrics as eval_metrics
 from style_seqcvae_tpu_torch.evaluation.metrics import Cider
+from style_seqcvae_tpu_torch.models.baseline import init_baseline
 from style_seqcvae_tpu_torch.models.captioner import (
     CaptionerConfig,
     init_captioner,
@@ -166,11 +191,13 @@ from style_seqcvae_tpu_torch.models.detector.rpn import (
     rpn_heads,
 )
 from style_seqcvae_tpu_torch.ops.kernels import _build, nms, roi_align, topk_lse, vocab_topk_lse
+from style_seqcvae_tpu_torch.scripts import eval as eval_cli
 from style_seqcvae_tpu_torch.scripts import inference as cli
 from style_seqcvae_tpu_torch.scripts import train as train_cli
 from style_seqcvae_tpu_torch.training.checkpointing import read_checkpoint
 from style_seqcvae_tpu_torch.training.trainer import (
     create_train_state,
+    make_baseline_train_step,
     make_chained_train_step,
     make_corpus_chained_train_step,
     make_corpus_train_step,
@@ -482,10 +509,11 @@ def decode_setup(cfg: CaptionerConfig, batch: int, n_z: int, boxes: int, seed: i
 
 
 def agree_row(path: str, got: torch.Tensor, want: torch.Tensor, lp_got, lp_want, need: float,
-              live=None, **extra) -> None:
+              live=None, phase: str = "agree", **extra) -> tuple:
     """Emit the share of identical token rows (last axis) and the largest
     score difference where they are identical; fail below ``need`` or above
-    AGREE_LP_TOL. ``live`` restricts both to the rows where it holds."""
+    AGREE_LP_TOL. ``live`` restricts both to the rows where it holds.
+    Returns (share, score difference)."""
     got, want = got.cpu(), want.cpu()
     same = (got == want).all(dim=-1)
     live = torch.ones_like(same) if live is None else live.cpu()
@@ -493,11 +521,12 @@ def agree_row(path: str, got: torch.Tensor, want: torch.Tensor, lp_got, lp_want,
     lp_err = None
     if lp_got is not None and bool((same & live).any()):
         lp_err = (lp_got.cpu() - lp_want.cpu())[same & live].abs().max().item()
-    emit({"phase": "agree", "path": path, "token_identical": frac, "rows": int(live.sum()),
+    emit({"phase": phase, "path": path, "token_identical": frac, "rows": int(live.sum()),
           "max_abs_err_lp_where_identical": lp_err, **extra})
     if frac < need or (lp_err is not None and lp_err > AGREE_LP_TOL):
         fail(f"GPU {path} disagrees with the CPU: {frac} identical (need {need}), "
              f"lp error {lp_err}")
+    return frac, lp_err
 
 
 def phase_agree(dev: torch.device) -> None:
@@ -1691,13 +1720,13 @@ def write_train_cli_world(root: Path) -> Path:
     return root / "train.yml"
 
 
-def train_cli_run(cfg: Path, ser: Path, extra: list) -> dict:
+def train_cli_run(cfg: Path, ser: Path, extra: list, every: int = 3) -> dict:
     reset_kernel_counts()
     stats = {}
     torch.cuda.synchronize()
     t0 = time.time()
     rc = train_cli.main(["--config", str(cfg), "--serialization-dir", str(ser),
-                         "--checkpoint-every", "3", *extra], stats=stats)
+                         "--checkpoint-every", str(every), *extra], stats=stats)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = kernel_counts()
@@ -1706,52 +1735,321 @@ def train_cli_run(cfg: Path, ser: Path, extra: list) -> dict:
     return dict(stats, wall_s=wall, launches=counts)
 
 
-def phase_train_cli(dev: torch.device) -> int:
+def phase_train_cli(dev: torch.device, root: Path) -> tuple:
     """The train CLI (``python -m style_seqcvae_tpu_torch.scripts.train``) as a
     user runs it, a resume, then the inference CLI on the final checkpoint
-    directory; returns kernel A's launches in the inference run."""
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        cfg = write_train_cli_world(root / "world")
-        ser = root / "run"
-        first = train_cli_run(cfg, ser, ["--max-iterations", str(TRAIN_CLI_ITERS // 2)])
-        ckpts = sorted(p.name for p in ser.iterdir() if p.name.startswith("checkpoint_"))
-        second = train_cli_run(cfg, ser, ["--start-from-checkpoint",
-                                          f"checkpoint_{TRAIN_CLI_ITERS // 2}"])
-        rows = [json.loads(line) for line in (ser / "metrics.jsonl").read_text().splitlines()]
-        steps = [r["step"] for r in rows]
-        finite = all(np.isfinite(r["loss"]) for r in rows)
+    directory, all under ``root`` (the world in ``root/world``); returns
+    kernel A's launches in the inference run and its predictions' path."""
+    cfg = write_train_cli_world(root / "world")
+    ser = root / "run"
+    first = train_cli_run(cfg, ser, ["--max-iterations", str(TRAIN_CLI_ITERS // 2)])
+    ckpts = sorted(p.name for p in ser.iterdir() if p.name.startswith("checkpoint_"))
+    second = train_cli_run(cfg, ser, ["--start-from-checkpoint",
+                                      f"checkpoint_{TRAIN_CLI_ITERS // 2}"])
+    rows = [json.loads(line) for line in (ser / "metrics.jsonl").read_text().splitlines()]
+    steps = [r["step"] for r in rows]
+    finite = all(np.isfinite(r["loss"]) for r in rows)
+    reset_kernel_counts()
+    out = root / "preds.json"
+    t0 = time.time()
+    rc = cli.main(["--config", str(cfg), "--output-path", str(out), "--bf16",
+                   "--batch-images", str(CLI_GROUP), "--max-images", str(TRAIN_CLI_DECODE),
+                   "--checkpoint-path", str(ser), "--checkpoint-name",
+                   f"checkpoint_{TRAIN_CLI_ITERS}", "--config-override",
+                   "DATA.DO_LOAD_COCO", "false", "DATA.DO_LOAD_SENTICAP", "false"])
+    torch.cuda.synchronize()
+    decode_s = time.time() - t0
+    counts = kernel_counts()
+    preds = json.loads(out.read_text())
+    restored = read_checkpoint(str(ser / f"checkpoint_{TRAIN_CLI_ITERS}"))
+    emit({"phase": "train_cli", "batch": PUBLISHED_OPTIM["BATCH_SIZE"],
+          "iterations": TRAIN_CLI_ITERS, "first_run": first, "resumed_run": second,
+          "checkpoints_after_first": ckpts, "metrics_steps": steps, "loss_finite": finite,
+          "losses": [r["loss"] for r in rows],
+          "checkpoint_step": int(restored["opt_state"]["step"]),
+          "inference": {"rc": rc, "predictions": len(preds), "seconds": decode_s,
+                        "launches": counts}})
+    if steps != list(range(1, TRAIN_CLI_ITERS + 1)) or not finite:
+        fail(f"train_cli: metrics steps {steps}, finite {finite}")
+    if second["start"] != TRAIN_CLI_ITERS // 2 + 1 or \
+            int(restored["opt_state"]["step"]) != TRAIN_CLI_ITERS:
+        fail("train_cli: the resume did not continue from its checkpoint")
+    want = {k: 0 for k in KERNELS}
+    want["vocab_topk_lse"] = (STEPS - 1) * -(-TRAIN_CLI_DECODE // CLI_GROUP)
+    if rc != 0 or len(preds) != TRAIN_CLI_DECODE * N_Z or counts != want:
+        fail(f"train_cli: inference from the checkpoint: rc {rc}, {len(preds)} "
+             f"predictions, launches {counts} (expected {want})")
+    return counts["vocab_topk_lse"], out
+
+
+# the UpDown baseline family (JAX models/baseline.py): no kernel on its path,
+# as in JAX, whose harness hands it to the CBS search with raw_step=False
+# (the log-prob route). Its decodes at batch 16 x 1 z (the inference CLI's
+# grid for the family) and 320 x 1 z (config 3's 12,800 rows a step); its
+# training at config 2's widths and batches; ~50 steps on a fixed batch
+BASELINE_GRIDS = (16, 320)
+BASELINE_TRAIN_STEPS = 50
+BASELINE_AGREE_HEADS = {"tied": 300, "untied": 16}
+# the metrics whose oracle (per-image best z, then the corpus re-scored) is
+# held against the mean over z
+EVAL_METRICS = ("B1", "B2", "B3", "B4", "rouge", "cider", "meteor")
+
+
+def phase_baseline_agree(dev: torch.device) -> None:
+    """Small f32 baseline decodes, the GPU against the CPU on shared seeded
+    noise (CBS through logprob, beam, each sampler), then 3 train steps
+    (TF32 off) with the tied and the untied head: the metrics, each leaf's
+    gradient norm and every leaf after the third step."""
+    cfg = CaptionerConfig(vocab_size=700, image_feature_size=64, embedding_size=300,
+                          hidden_size=48, attention_projection_size=32, z_space=16,
+                          max_caption_length=10, beam_size=BEAM)
+    batch, n_z, boxes = 4, 3, 10
+    T = cfg.max_caption_length
+    feats, _, tables = decode_setup(cfg, batch, 1, boxes, seed=2)
+    params_cpu = init_baseline(cfg, seed=4, device="cpu")
+    cpu = DecodeHarness(params_cpu, cfg, device="cpu", family="baseline")
+    gpu = DecodeHarness(to_device(params_cpu, dev), cfg, device=dev, family="baseline")
+    rng = np.random.RandomState(3)
+    noise = rng.randn(1, T, batch, STATES, BEAM, cfg.z_space).astype(np.float32)
+    reset_kernel_counts()
+    shares, lp_errs = [], []
+
+    def row(path, got, ref, lp_got=None, lp_ref=None, **extra):
+        frac, err = agree_row(f"baseline/{path}", got, ref, lp_got, lp_ref,
+                              AGREE_MIN_NO_KERNEL, phase="baseline_agree", **extra)
+        shares.append(frac)
+        lp_errs.append(err or 0.0)
+
+    args = (feats, None, None, tables, N_CONSTRAINTS, noise, 1)
+    ref, got = cpu.decode_cbs(*args), gpu.decode_cbs(*args)
+    row("decode_cbs/logprob", got[0], ref[0], got[1], ref[1], selection="logprob")
+    ref = cpu.decode_beam(feats, None, None, noise[:, :, :, 0], 1)
+    got = gpu.decode_beam(feats, None, None, noise[:, :, :, 0], 1)
+    row("decode_beam", got[0], ref[0], got[1], ref[1])
+    for method in SAMPLERS:
+        inner = (BEAM,) if method == "gumbel" else ()
+        z = rng.randn(n_z, T, batch, BEAM if inner else 1, cfg.z_space).astype(np.float32)
+        g = -np.log(rng.exponential(size=(n_z, T, batch) + inner + (cfg.vocab_size,)))
+        kw = {"temperature": 0.8} if method == "topp" else {}
+        sample_args = (feats, None, None, (z, g.astype(np.float32)), n_z, method)
+        row(f"decode_sample/{method}", gpu.decode_sample(*sample_args, **kw),
+            cpu.decode_sample(*sample_args, **kw), **kw)
+
+    worst_all = {"metrics": 0.0, "grad_norm": 0.0, "params": 0.0}
+    for head, emb in BASELINE_AGREE_HEADS.items():
+        tcfg = cfg._replace(vocab_size=50, embedding_size=emb)
+        config = Config(config_override=AGREE_OVERRIDES)
+        params = init_baseline(tcfg, seed=3, device="cpu")
+        states = {side: create_train_state(params, config, tcfg, seed=0, device=d)
+                  for side, d in (("cpu", torch.device("cpu")), ("gpu", dev))}
+        step = make_baseline_train_step(tcfg)
+        worst = {"metrics": 0.0, "grad_norm": 0.0, "params": 0.0}
+        for it in range(3):
+            b = {k: v.cpu() for k, v in train_batch(tcfg, 8, boxes, it, "cpu").items()}
+            metrics = {}
+            for side, state in states.items():
+                states[side], metrics[side] = step(state, b)
+            for name in ("loss", "reconstr_loss"):
+                worst["metrics"] = max(worst["metrics"], abs(
+                    metrics["gpu"][name].item() / metrics["cpu"][name].item() - 1))
+            if metrics["gpu"]["kld_loss"].item() != 0.0:
+                fail("baseline_agree: the baseline's kld_loss is not 0")
+            grads = {side: dict((p, t.grad) for p, t in named_leaves(s.params))
+                     for side, s in states.items()}
+            for path, g in grads["cpu"].items():
+                if (g is None) != (grads["gpu"][path] is None):
+                    fail(f"baseline_agree {head}: {path} has a gradient on one side only")
+                if g is not None:
+                    worst["grad_norm"] = max(worst["grad_norm"], abs(
+                        grads["gpu"][path].norm().item() / g.norm().item() - 1))
+        for (path, t_cpu), (_, t_gpu) in zip(named_leaves(states["cpu"].params),
+                                             named_leaves(states["gpu"].params)):
+            worst["params"] = max(worst["params"], rel_err(t_gpu, t_cpu))
+        emit({"phase": "baseline_agree", "case": f"train_{head}", "steps": 3,
+              "max_rel_err": worst, "tolerance": TRAIN_AGREE_TOL})
+        bad = {k: v for k, v in worst.items() if not v <= TRAIN_AGREE_TOL[k]}
+        if bad:
+            fail(f"baseline_agree {head}: the GPU's train steps disagree with the CPU's: {bad}")
+        worst_all = {k: max(v, worst[k]) for k, v in worst_all.items()}
+    counts = kernel_counts()
+    emit({"phase": "baseline_agree", "summary": True, "token_identical": min(shares),
+          "max_abs_err_lp_where_identical": max(lp_errs), "train_max_rel_err": worst_all,
+          "largest_rel_err": max(worst_all.values()), "launches": counts})
+    if any(counts.values()):
+        fail(f"baseline_agree: a kernel ran on the baseline's path: {counts}")
+
+
+def phase_baseline_decode(dev: torch.device) -> None:
+    """The baseline at full width (config 3's model without z: V 10,500, E
+    600 tied, H 900, P 768, F 2048, 100 boxes, 20 steps, beam 5, 8 FSM
+    states, bf16): ``decode_cbs`` (logprob) at batch 16 and 320 x 1 z, then
+    ``decode_beam`` at 320 x 1 z; first and warm seconds, captions/s, the
+    output checks and the kernels' launches (none)."""
+    cfg = decode_cfg()
+    params = init_baseline(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    harness = DecodeHarness(params, cfg, device=dev, family="baseline")
+    none = {k: 0 for k in KERNELS}
+
+    def timed(name, run, batch, row):
         reset_kernel_counts()
-        out = root / "preds.json"
-        t0 = time.time()
-        rc = cli.main(["--config", str(cfg), "--output-path", str(out), "--bf16",
-                       "--batch-images", str(CLI_GROUP), "--max-images", str(TRAIN_CLI_DECODE),
-                       "--checkpoint-path", str(ser), "--checkpoint-name",
-                       f"checkpoint_{TRAIN_CLI_ITERS}", "--config-override",
-                       "DATA.DO_LOAD_COCO", "false", "DATA.DO_LOAD_SENTICAP", "false"])
         torch.cuda.synchronize()
-        decode_s = time.time() - t0
+        t0 = time.time()
+        best, best_lp = run()
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
         counts = kernel_counts()
-        preds = json.loads(out.read_text())
-        restored = read_checkpoint(str(ser / f"checkpoint_{TRAIN_CLI_ITERS}"))
-        emit({"phase": "train_cli", "batch": PUBLISHED_OPTIM["BATCH_SIZE"],
-              "iterations": TRAIN_CLI_ITERS, "first_run": first, "resumed_run": second,
-              "checkpoints_after_first": ckpts, "metrics_steps": steps, "loss_finite": finite,
-              "losses": [r["loss"] for r in rows],
-              "checkpoint_step": int(restored["opt_state"]["step"]),
-              "inference": {"rc": rc, "predictions": len(preds), "seconds": decode_s,
-                            "launches": counts}})
-        if steps != list(range(1, TRAIN_CLI_ITERS + 1)) or not finite:
-            fail(f"train_cli: metrics steps {steps}, finite {finite}")
-        if second["start"] != TRAIN_CLI_ITERS // 2 + 1 or \
-                int(restored["opt_state"]["step"]) != TRAIN_CLI_ITERS:
-            fail("train_cli: the resume did not continue from its checkpoint")
-        want = {k: 0 for k in KERNELS}
-        want["vocab_topk_lse"] = (STEPS - 1) * -(-TRAIN_CLI_DECODE // CLI_GROUP)
-        if rc != 0 or len(preds) != TRAIN_CLI_DECODE * N_Z or counts != want:
-            fail(f"train_cli: inference from the checkpoint: rc {rc}, {len(preds)} "
-                 f"predictions, launches {counts} (expected {want})")
-    return counts["vocab_topk_lse"]
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
+        check_decode_output(name, best, best_lp, [1, batch, STEPS], counts, none,
+                            {"phase": "baseline_decode", **row, "batch": batch, "n_z": 1,
+                             "best_lp_min": best_lp.min().item(), "first_run_s": first_s,
+                             "warm_run_s": warm_s, "captions_per_s": batch / warm_s})
+
+    for batch in BASELINE_GRIDS:
+        feats, _, tables = decode_setup(cfg, batch, 1, BOXES, seed=0)
+        timed(f"baseline_decode (cbs, batch {batch})",
+              lambda: harness.decode_cbs(feats, None, None, tables, N_CONSTRAINTS,
+                                         torch.Generator(device=dev).manual_seed(7), 1),
+              batch, {"search": "cbs", "selection": "logprob", "states": STATES, "beam": BEAM,
+                      "rows_per_step": batch * STATES * BEAM})
+    timed("baseline_decode (beam)",
+          lambda: harness.decode_beam(feats, None, None,
+                                      torch.Generator(device=dev).manual_seed(8), 1),
+          BASELINE_GRIDS[-1], {"search": "beam", "beam": BEAM,
+                               "rows_per_step": BASELINE_GRIDS[-1] * BEAM})
+
+
+def baseline_train_row(cfg, params, batch_size: int, dtype, dev) -> None:
+    """The baseline's single steps on a fixed batch: ms a step (median of
+    18 and its range), captions/s, peak memory, the card's time, ops and
+    busy share from a profiler trace of 3 steps, the loss over
+    BASELINE_TRAIN_STEPS steps (finite and falling) and the launches."""
+    gc.collect()
+    compute = None if dtype == torch.float32 else dtype
+    state = create_train_state(params, Config(), cfg, seed=1, device=dev)
+    batch = train_batch(cfg, batch_size, BOXES, seed=batch_size, dev=dev)
+    step = make_baseline_train_step(cfg, compute)
+    losses = []
+
+    def single():
+        losses.append(step(state, batch)[1]["loss"])
+
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first = timed_steps(single, 1)[0]
+    warm = timed_steps(single, TRAIN_WARMUP - 1)
+    ms = timed_steps(single, TRAIN_TIMED)
+    med, rng_ = median_range(ms)
+    prof = profile_steps(single, 3)
+    timed_steps(single, BASELINE_TRAIN_STEPS - len(losses))
+    loss = [x.item() for x in losses]
+    counts = kernel_counts()
+    busy = prof["device_ms_per_step"]
+    row = {"phase": "baseline_train", "batch": batch_size, "dtype": str(dtype).split(".")[-1],
+           "first_step_ms": first, "warm_ms": warm, "single_ms": med, "single_ms_range": rng_,
+           "single_captions_per_s": batch_size / med * 1e3, **prof,
+           "device_busy_share": None if busy is None else busy / med, "steps": len(loss),
+           "loss_first": loss[0], "loss_last": loss[-1],
+           "loss_finite": bool(np.isfinite(loss).all()),
+           "loss_falling": bool(np.mean(loss[-5:]) < np.mean(loss[:5])),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
+    emit(row)
+    if not (row["loss_finite"] and row["loss_falling"]):
+        fail(f"baseline_train: the loss is not finite and falling on a fixed batch: {loss}")
+    if any(counts.values()):
+        fail(f"baseline_train: a kernel ran in the baseline's step: {counts}")
+
+
+def phase_baseline_train(dev: torch.device) -> None:
+    """The baseline at config 2's widths (E 600 tied, H 900, P 768, F 2048,
+    100 boxes, 21 teacher-forced steps), batch 32 and 150, f32 (TF32 off)
+    and bf16 compute."""
+    cfg = train_cfg()
+    params = init_baseline(cfg, seed=0, device=dev)
+    for batch_size in TRAIN_BATCHES:
+        for dtype in (torch.float32, torch.bfloat16):
+            baseline_train_row(cfg, params, batch_size, dtype, dev)
+
+
+def eval_run(preds: Path, refs: Path, forms: Path, out: Path, name: str) -> None:
+    """The eval CLI (``python -m style_seqcvae_tpu_torch.scripts.eval``) on a
+    predictions JSON: its seconds, every number (finite; each oracle at or
+    above its mean over z) and which METEOR ran."""
+    reset_kernel_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = eval_cli.main(["--predictions", str(preds), "--references", str(refs),
+                            "--wordforms", str(forms), "--output", str(out)])
+    seconds = time.perf_counter() - t0
+    scores = json.loads(out.read_text())
+    captions = json.loads(preds.read_text())
+    finite = all(np.isfinite(v) for v in scores.values())
+    oracle_ok = {k: scores[k] >= scores[f"mean {k}"] for k in EVAL_METRICS}
+    emit({"phase": "eval", "predictions": name, "rc": rc, "captions": len(captions),
+          "images": len({p["image_id"] for p in captions}), "seconds": seconds,
+          "captions_per_s": len(captions) / seconds,
+          "meteor": "MeteorJava" if eval_metrics._jvm_meteor_available() else "MeteorPy",
+          "meteor_stemmer": ("porter (nltk)" if eval_metrics._porter_stem("running") == "run"
+                             else "identity"),
+          "printed_lines": len(printed.getvalue().splitlines()), "scores": scores,
+          "finite": finite, "oracle_at_least_mean": oracle_ok, "launches": kernel_counts()})
+    if rc != 0 or not finite or not all(oracle_ok.values()) or set(EVAL_METRICS) - set(scores):
+        fail(f"eval ({name}): rc {rc}, finite {finite}, oracle >= mean {oracle_ok}")
+
+
+def phase_baseline_cli(dev: torch.device, root: Path, cvae_preds: Path) -> None:
+    """The train CLI at ``--model baseline`` on train_cli's world (12
+    iterations, checkpoints every 6), the inference CLI at ``--model
+    baseline --bf16`` from its ``checkpoint_12`` over 16 images on the card
+    and on the CPU (no more fallbacks on the card), then the eval CLI on
+    these predictions and on train_cli's cvae predictions (320 captions)."""
+    cfg = root / "world" / "train.yml"
+    ser = root / "baseline_run"
+    run = train_cli_run(cfg, ser, ["--model", "baseline"], every=TRAIN_CLI_ITERS // 2)
+    rows = [json.loads(line) for line in (ser / "metrics.jsonl").read_text().splitlines()]
+    restored = read_checkpoint(str(ser / f"checkpoint_{TRAIN_CLI_ITERS}"))
+    family = sorted(restored["params"]["cell"])
+    args = ["--config", str(cfg), "--model", "baseline", "--bf16", "--batch-images",
+            str(CLI_GROUP), "--max-images", str(TRAIN_CLI_DECODE), "--checkpoint-path", str(ser),
+            "--checkpoint-name", f"checkpoint_{TRAIN_CLI_ITERS}", "--config-override",
+            "DATA.DO_LOAD_COCO", "false", "DATA.DO_LOAD_SENTICAP", "false"]
+    decoded = {}
+    for side, extra in (("gpu", []), ("cpu", ["--cpu"])):
+        out = root / f"baseline_preds_{side}.json"
+        reset_kernel_counts()
+        stats = {}
+        t0 = time.time()
+        rc = cli.main(args + ["--output-path", str(out), *extra], stats=stats)
+        torch.cuda.synchronize()
+        decoded[side] = {"rc": rc, "seconds": time.time() - t0, "fallbacks": stats["fallbacks"],
+                         "predictions": json.loads(out.read_text()), "launches": kernel_counts(),
+                         "path": out}
+    gpu, cpu = decoded["gpu"], decoded["cpu"]
+    same = np.mean([a == b for a, b in zip(gpu["predictions"], cpu["predictions"])])
+    emit({"phase": "baseline_cli", "batch": PUBLISHED_OPTIM["BATCH_SIZE"],
+          "iterations": TRAIN_CLI_ITERS, "train": run, "metrics_steps": [r["step"] for r in rows],
+          "losses": [r["loss"] for r in rows], "kld_losses": [r["kld_loss"] for r in rows],
+          "checkpoint_cell": family,
+          "inference": {side: {k: v for k, v in d.items() if k not in ("predictions", "path")}
+                        | {"predictions": len(d["predictions"])} for side, d in decoded.items()},
+          "gpu_vs_cpu_identical_captions": float(same)})
+    if [r["step"] for r in rows] != list(range(1, TRAIN_CLI_ITERS + 1)) or \
+            not all(np.isfinite(r["loss"]) and r["kld_loss"] == 0.0 for r in rows):
+        fail("baseline_cli: the train CLI's metrics are wrong")
+    if family != ["attention", "attention_lstm", "language_lstm"]:
+        fail(f"baseline_cli: the checkpoint holds a cell of {family}")
+    if gpu["rc"] != 0 or len(gpu["predictions"]) != TRAIN_CLI_DECODE or \
+            any(gpu["launches"].values()) or gpu["fallbacks"] > cpu["fallbacks"]:
+        fail(f"baseline_cli: inference on the card: rc {gpu['rc']}, "
+             f"{len(gpu['predictions'])} predictions, launches {gpu['launches']}, "
+             f"fallbacks {gpu['fallbacks']} (CPU {cpu['fallbacks']})")
+    world = root / "world"
+    for name, preds in (("baseline", gpu["path"]), ("cvae", cvae_preds)):
+        eval_run(preds, world / "captions.json", world / "wordforms.tsv",
+                 root / f"scores_{name}.json", name)
 
 
 def main() -> int:
@@ -1788,7 +2086,17 @@ def main() -> int:
     # inference run adds to A's count
     phase_train_agree(dev)
     phase_train(dev)
-    launches["vocab_topk_lse"] += phase_train_cli(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        a_launches, cvae_preds = phase_train_cli(dev, root)
+        launches["vocab_topk_lse"] += a_launches
+        # the baseline family and the evaluation after every earlier path,
+        # so that those run as before; none launches a kernel, and the eval
+        # phase scores train_cli's cvae predictions too
+        phase_baseline_agree(dev)
+        phase_baseline_decode(dev)
+        phase_baseline_train(dev)
+        phase_baseline_cli(dev, root, cvae_preds)
 
     kernels = []
     for name, row in {**rows, **det_rows}.items():

@@ -25,12 +25,14 @@ from style_seqcvae_tpu_torch.decoding.cbs_fast import (
 from style_seqcvae_tpu_torch.decoding.samplers import gumbel_beam_search, sample_decode
 from style_seqcvae_tpu_torch.decoding.select import select_best_beam_simple
 from style_seqcvae_tpu_torch.device import as_tensor, resolve_device
+from style_seqcvae_tpu_torch.models.baseline import init_baseline_state, make_baseline_step_fn
 from style_seqcvae_tpu_torch.models.captioner import (
     CaptionerConfig,
     make_decode_context,
     make_optimized_step_fn,
 )
 from style_seqcvae_tpu_torch.models.updown_cell import init_cell_state
+from style_seqcvae_tpu_torch.weights import FAMILIES, param_family
 
 
 # the choices of scripts/inference.py --sampler
@@ -77,22 +79,41 @@ def pad_tables(tables: List[FSMTables], n_z: int) -> FSMTables:
 
 class DecodeHarness:
     def __init__(self, params: Dict[str, Any], cfg: CaptionerConfig,
-                 device: Optional[Union[str, torch.device]] = None):
-        """``params`` must already lie on ``device`` (``init_captioner`` or
-        ``from_jax_params`` with the same device)."""
+                 device: Optional[Union[str, torch.device]] = None, family: str = "cvae"):
+        """``params`` must already lie on ``device`` (``init_captioner``,
+        ``init_baseline`` or ``from_jax_params`` with the same device).
+        ``family``: ``"cvae"`` (Style-SeqCVAE, z-sampled) or ``"baseline"``
+        (the non-variational UpDown, deterministic: its step ignores the
+        z-noise, so callers pass n_z = 1 unless a sampler draws); the
+        parameters must be that family's."""
         self.device = resolve_device(device)
+        if family not in FAMILIES:
+            raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
+        if param_family(params) != family:
+            raise ValueError(f"a {family} harness was given the {param_family(params)} "
+                             "family's parameters")
         if params["embedding"].device.type != self.device.type:
             raise ValueError(f"params on {params['embedding'].device}, harness on {self.device}")
         self.params = params
         self.cfg = cfg
+        self.family = family
+
+    def _init_state(self, rows: int, dtype: torch.dtype):
+        init = init_baseline_state if self.family == "baseline" else init_cell_state
+        return init((rows,), self.cfg.hidden_size, device=self.device, dtype=dtype)
 
     def _grid_step(self, feats, sentiment, obj_att_embeds, n_z: int, **contract):
-        """The optimized step with the requested return contract, taking and
-        returning image-major rows (B·n_z, ...): a view splits them into the
-        (B, n_z, ...) grid the step broadcasts the image features over."""
-        ctx = make_decode_context(self.params, self.cfg, feats, sentiment=sentiment,
-                                  obj_att_embeds=obj_att_embeds)
-        step = make_optimized_step_fn(self.params, self.cfg, ctx, **contract)
+        """The family's step with the requested return contract (the
+        baseline's: log-probs only), taking and returning image-major rows
+        (B·n_z, ...): a view splits them into the (B, n_z, ...) grid the step
+        broadcasts the image features over. The cvae family runs the
+        optimized step, the baseline ``make_baseline_step_fn``."""
+        if self.family == "baseline":
+            step = make_baseline_step_fn(self.params, self.cfg, feats)
+        else:
+            ctx = make_decode_context(self.params, self.cfg, feats, sentiment=sentiment,
+                                      obj_att_embeds=obj_att_embeds)
+            step = make_optimized_step_fn(self.params, self.cfg, ctx, **contract)
         B = feats.shape[0]
 
         def split(t):
@@ -141,12 +162,15 @@ class DecodeHarness:
     @torch.inference_mode()
     def decode_cbs(self, feats, sentiment, obj_att_embeds, tables, num_constraints,
                    noise: Union[np.ndarray, torch.Tensor, torch.Generator], n_z: int,
-                   selection: str = "prehead", return_all: bool = False
+                   selection: Optional[str] = None, return_all: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``selection``: "prehead" (kernel A), "fused" (kernel B), "raw" or
-        "logprob" (no kernel). ``"raw"`` is the JAX harness's own route: its
-        ``decode_cbs`` always asks the step for raw logits and selects with
-        ``small_top_k`` over them (``raw_step=True``, neither kernel).
+        """``selection``: "prehead" (kernel A, the cvae family's default),
+        "fused" (kernel B), "raw" or "logprob" (no kernel). ``"raw"`` is the
+        JAX harness's own route for the cvae family: its ``decode_cbs`` asks
+        the step for raw logits and selects with ``small_top_k`` over them
+        (``raw_step=True``, neither kernel). The baseline family takes only
+        ``"logprob"`` (its default): JAX hands it to the search with
+        ``raw_step=False``, and its step has no raw or pre-head contract.
         feats (B, N, F); sentiment (B, 1) or None; obj_att_embeds (B, N, z)
         or None; ``tables`` is per-z ``List[FSMTables]`` (B = 1), per-image
         ``List[List[FSMTables]]`` or an already padded (n_z, B, S[, E])
@@ -157,6 +181,11 @@ class DecodeHarness:
 
         Returns (best (n_z, B, T), best_lp (n_z, B)), or all beams
         ((n_z, B, S, K, T), (n_z, B, S, K)) with ``return_all``."""
+        if selection is None:
+            selection = "logprob" if self.family == "baseline" else "prehead"
+        if self.family == "baseline" and selection != "logprob":
+            raise ValueError(f"the baseline family decodes CBS through selection "
+                             f"'logprob' only, got {selection!r}")
         cfg, dev = self.cfg, self.device
         feats, sentiment, obj_att_embeds = self._inputs(feats, sentiment, obj_att_embeds)
         B = feats.shape[0]
@@ -184,7 +213,7 @@ class DecodeHarness:
                                     return_prehead=prehead)
         noise = self._noise_rows(noise, Z, B, (fsm.default_dest.shape[1], cfg.beam_size))
         start = torch.full((B * Z,), cfg.boundary_index, dtype=torch.long, device=dev)
-        init_state = init_cell_state((B * Z,), cfg.hidden_size, device=dev, dtype=feats.dtype)
+        init_state = self._init_state(B * Z, feats.dtype)
         seqs, lp = constrained_beam_search_fast(
             grid_step, start, init_state, fsm, noise,
             max_steps=cfg.max_caption_length, beam_size=cfg.beam_size,
@@ -217,7 +246,7 @@ class DecodeHarness:
         grid_step = self._grid_step(feats, sentiment, obj_att_embeds, n_z)
         noise = self._noise_rows(noise, n_z, B, (cfg.beam_size,))
         start = torch.full((B * n_z,), cfg.boundary_index, dtype=torch.long, device=dev)
-        init_state = init_cell_state((B * n_z,), cfg.hidden_size, device=dev, dtype=feats.dtype)
+        init_state = self._init_state(B * n_z, feats.dtype)
         seqs, lp = beam_search(grid_step, start, init_state, noise,
                                max_steps=cfg.max_caption_length, beam_size=cfg.beam_size,
                                per_node_beam_size=cfg.beam_size // 2,
@@ -256,7 +285,7 @@ class DecodeHarness:
                                       cfg.vocab_size))
         grid_step = self._grid_step(feats, sentiment, obj_att_embeds, n_z)
         start = torch.full((B * n_z,), cfg.boundary_index, dtype=torch.long, device=dev)
-        init_state = init_cell_state((B * n_z,), cfg.hidden_size, device=dev, dtype=feats.dtype)
+        init_state = self._init_state(B * n_z, feats.dtype)
         kw = dict(max_steps=cfg.max_caption_length, end_index=cfg.boundary_index)
         if method == "gumbel":
             seqs = gumbel_beam_search(grid_step, start, init_state, noise,

@@ -92,6 +92,13 @@ def _attend(attn_w: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     return out.reshape(tuple(grid) + (values.shape[-1],))
 
 
+def _concat(parts, grid: Tuple[int, ...]) -> torch.Tensor:
+    """``parts`` broadcast to ``grid`` and concatenated on the last axis in
+    their promoted dtype, as ``jnp.concatenate`` promotes."""
+    to = reduce(torch.promote_types, [p.dtype for p in parts])
+    return torch.cat([p.to(to).expand(grid + (p.shape[-1],)) for p in parts], dim=-1)
+
+
 def image_feature_stats(image_features: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean-pooled features and the box mask (a box is real iff its feature
     vector is not all zero), computed once per decode."""
@@ -129,27 +136,22 @@ def cell_step(
     The z-noise is ``eps`` when given, else a draw from the
     ``torch.Generator`` ``rng``; at inference ``rng`` may also be a
     floating tensor (the searches thread their noise rows through that
-    slot), which training refuses. At inference the inputs are
-    concatenated in the token embedding's dtype. In training the encoder's
-    and the decoder's inputs are concatenated in their promoted dtype, as
-    ``jnp.concatenate`` does: under bf16 compute ``q_mean`` (an f32 product
-    plus a bf16 bias) is f32, so z and the decoder LSTM's whole input stay
-    f32."""
+    slot), which training refuses. Every LSTM input is concatenated in its
+    parts' promoted dtype, as ``jnp.concatenate`` does: under bf16 the prior
+    (at inference in modes 0 and 1) and the posterior mean (in training, an
+    f32 product plus a bf16 bias) are f32, so z and the decoder LSTM's whole
+    input stay f32."""
     if training and torch.is_tensor(rng):
         raise TypeError("cell_step(training=True) takes eps or a torch.Generator, "
                         "not a noise tensor in rng")
     grid = tuple(token_embedding.shape[:-1])
     extra = len(grid) - 1
-    dtype = token_embedding.dtype
 
     def bcast(x):  # (B, D) → (B, 1..., D) for the inner grid dims
         return x.reshape((x.shape[0],) + (1,) * extra + tuple(x.shape[1:]))
 
-    def cat(parts, promote=False):
-        to = reduce(torch.promote_types, [p.dtype for p in parts]) if promote else dtype
-        return torch.cat([p.to(to).expand(grid + (p.shape[-1],)) for p in parts], dim=-1)
-
-    attn_in = cat([token_embedding, bcast(averaged_image_features), state.h1, state.h_dec])
+    attn_in = _concat([token_embedding, bcast(averaged_image_features), state.h1, state.h_dec],
+                      grid)
     h1, c1 = lstm_cell(params.attention_lstm, attn_in, state.h1, state.c1)
     attn_w = attention_weights(params.attention, h1, projected_image_features,
                                image_features_mask)
@@ -174,8 +176,7 @@ def cell_step(
         c = prior_mean
 
     if training:
-        enc_in = cat([attended, h1, state.h_dec] + ([c] if c is not None else []),
-                     promote=True)
+        enc_in = _concat([attended, h1, state.h_dec] + ([c] if c is not None else []), grid)
         h_enc, c_enc = lstm_cell(params.encoder_lstm, enc_in, state.h_enc, state.c_enc)
         # f32 products plus the bias, as JAX's preferred_element_type=f32
         q_mean = torch.matmul(h_enc.float(), params.fc_mean_w.float()) + params.fc_mean_b
@@ -195,8 +196,7 @@ def cell_step(
         raise TypeError("cell_step needs eps, a floating rng tensor or a torch.Generator")
     z = eps * torch.sqrt(var) + mean
 
-    dec_in = cat([attended, h1, state.h_dec] + ([c] if c is not None else []) + [z],
-                 promote=training)
+    dec_in = _concat([attended, h1, state.h_dec] + ([c] if c is not None else []) + [z], grid)
     h_dec, c_dec = lstm_cell(params.decoder_lstm, dec_in, state.h_dec, state.c_dec)
     new_state = CellState(h1=h1, c1=c1, h_enc=h_enc, c_enc=c_enc, h_dec=h_dec, c_dec=c_dec)
     if training:

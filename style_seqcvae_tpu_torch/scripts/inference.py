@@ -3,7 +3,8 @@ package's ``scripts/inference.py``, itself a mirror of
 var_updown/scripts/inference.py:53-191).
 
     python -m style_seqcvae_tpu_torch.scripts.inference --config cfg.yml \\
-        --output-path preds.json [--batch-images 16] [--bf16] [--cpu]
+        --output-path preds.json [--model baseline] [--batch-images 16] \\
+        [--bf16] [--cpu]
 
 For every evaluation image: N_Z_SAMPLES decodes (a batch dimension on the
 card, not a Python loop), optional constrained beam search (CBS) with one
@@ -12,16 +13,20 @@ detokenization truncated at @@BOUNDARY@@, and a predictions JSON
 ``[{"image_id", "caption"}...]`` in the image-major, z-minor order the
 evaluator expects. Flags, seeds, output and progress lines are the JAX
 CLI's. It runs on ``cuda`` unless ``--cpu`` is given, and raises without a
-GPU. The CBS decode takes ``DecodeHarness.decode_cbs``'s default
-selection, ``"prehead"``: kernel A (``ops/kernels/vocab_topk_lse.py``) on
-the card.
+GPU. The CBS decode takes ``DecodeHarness.decode_cbs``'s default selection
+for the family: ``"prehead"`` for the cvae, kernel A
+(``ops/kernels/vocab_topk_lse.py``) on the card; ``"logprob"`` for the
+baseline (``--model baseline``, the non-variational UpDown), which no
+kernel serves, as in JAX. The baseline is deterministic, so it decodes one
+z-sample an image unless ``--sampler`` draws.
 
 Parameters: ``--checkpoint-path DIR --checkpoint-name NAME`` reads the
 params of the checkpoint ``DIR/NAME`` that the port's train CLI wrote (as
 the JAX CLI reads its own orbax checkpoints); a ``--checkpoint-path`` that
 is a file names a ``.npz`` of the JAX parameter tree
-(``weights.save_params_npz``); without either they are drawn by
-``init_captioner`` on the CPU, with ``hashed_random_embeddings`` for a tied
+(``weights.save_params_npz``); either must hold the ``--model`` family's
+parameters; without either they are drawn by ``init_captioner`` (or
+``init_baseline``) on the CPU, with ``hashed_random_embeddings`` for a tied
 head, and moved to the device, so that a CPU run and a card run use the
 same weights. z-noise comes from a ``torch.Generator`` seeded with
 ``RANDOM_SEED + 7``; candidates from ``random`` seeded with
@@ -57,6 +62,7 @@ from style_seqcvae_tpu_torch.data.vocabulary import (
 from style_seqcvae_tpu_torch.decoding.harness import DecodeHarness, detokenize
 from style_seqcvae_tpu_torch.decoding.select import select_best_beam_with_constraints
 from style_seqcvae_tpu_torch.device import resolve_device
+from style_seqcvae_tpu_torch.models.baseline import init_baseline
 from style_seqcvae_tpu_torch.models.captioner import (
     CaptionerConfig,
     hashed_random_embeddings,
@@ -91,7 +97,7 @@ parser.add_argument("--cpu", action="store_true",
 parser.add_argument("--max-images", type=int, default=0)
 parser.add_argument("--model", choices=["cvae", "baseline"], default="cvae",
                     help="cvae = Style-SeqCVAE (var_updown); baseline = "
-                         "non-variational UpDown (updown-baseline; ROADMAP A7)")
+                         "non-variational UpDown (updown-baseline)")
 parser.add_argument("--batch-images", type=int, default=1,
                     help="images per device dispatch (the reference decodes "
                          "strictly one at a time, inference.py:95)")
@@ -122,9 +128,6 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
     ``wait_s`` (waiting for a prepared group) and ``decode_s`` (the
     decodes, the selections and the detokenization)."""
     _A = parser.parse_args(argv)
-    if _A.model == "baseline":
-        raise NotImplementedError("--model baseline: the baseline family is not ported "
-                                  "yet (ROADMAP A7)")
     if _A.num_data > 1:
         raise NotImplementedError("--num-data > 1: multi-GPU decoding is not ported yet "
                                   "(ROADMAP A10)")
@@ -152,17 +155,18 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
     model_cfg = CaptionerConfig.from_config(_C, vocabulary)
     if _A.checkpoint_path and os.path.isdir(_A.checkpoint_path):
         tree = read_checkpoint(os.path.join(_A.checkpoint_path, _A.checkpoint_name))
-        params = from_jax_params(tree["params"], device="cpu")
+        params = from_jax_params(tree["params"], device="cpu", family=_A.model)
     elif _A.checkpoint_path:
-        params = from_jax_params(load_params_npz(_A.checkpoint_path), device="cpu")
+        params = from_jax_params(load_params_npz(_A.checkpoint_path), device="cpu",
+                                 family=_A.model)
     else:
         tokens = [vocabulary.get_token_from_index(i)
                   for i in range(vocabulary.get_vocab_size())]
         emb = (hashed_random_embeddings(tokens, model_cfg.embedding_size,
                                         model_cfg.pad_index)
                if model_cfg.tie_embeddings else None)
-        params = init_captioner(model_cfg, seed=_C.RANDOM_SEED, device="cpu",
-                                embedding_table=emb)
+        init = init_baseline if _A.model == "baseline" else init_captioner
+        params = init(model_cfg, seed=_C.RANDOM_SEED, device="cpu", embedding_table=emb)
 
     latent_dict = None
     if model_cfg.sentiment_vae == 2:
@@ -175,7 +179,7 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
 
     decode_dtype = torch.bfloat16 if _A.bf16 else torch.float32
     params = to_device(cast_floats(params, decode_dtype), device)
-    harness = DecodeHarness(params, model_cfg, device=device)
+    harness = DecodeHarness(params, model_cfg, device=device, family=_A.model)
     sampler_spec = None
     if _A.sampler:
         sampler_spec = dict(method=_A.sampler, top_k=_A.sampler_k, top_p=_A.sampler_p,
@@ -184,7 +188,9 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
             print("--sampler: CBS constraints ignored (the reference's "
                   "samplers exist only in the plain BeamSearch path, "
                   "beam_search.py:88-295)")
-    n_z = max(_C.MODEL.N_Z_SAMPLES, 1)
+    # the baseline is deterministic: its z-samples would all be identical,
+    # unless a stochastic sampler draws the tokens
+    n_z = max(_C.MODEL.N_Z_SAMPLES, 1) if _A.model != "baseline" or _A.sampler else 1
     noise = torch.Generator(device=device).manual_seed(_C.RANDOM_SEED + 7)
 
     predictions: List[Dict[str, Any]] = []

@@ -1,9 +1,10 @@
-"""Train the Style-SeqCVAE captioner (counterpart of the JAX package's
-``scripts/train.py``, itself a mirror of var_updown/scripts/train.py:76-188).
+"""Train the Style-SeqCVAE captioner or the UpDown baseline (counterpart of
+the JAX package's ``scripts/train.py``, itself a mirror of
+var_updown/scripts/train.py:76-188).
 
     python -m style_seqcvae_tpu_torch.scripts.train --config cfg.yml \\
-        --serialization-dir runs/x [--bf16-compute] [--device-corpus] \\
-        [--steps-per-dispatch K] [--max-iterations N] [--cpu]
+        --serialization-dir runs/x [--model baseline] [--bf16-compute] \\
+        [--device-corpus] [--steps-per-dispatch K] [--max-iterations N] [--cpu]
 
 The loop is the JAX CLI's: infinite shuffled batches from
 ``TrainingDataset.batches`` (``random.Random(RANDOM_SEED)``), loss =
@@ -16,12 +17,16 @@ checkpoint cadences snap to the ends of K-step calls), and the final
 prefetch thread. It runs on ``cuda`` unless ``--cpu`` is given, and raises
 without a GPU.
 
-Parameters are drawn by ``init_captioner`` on the CPU with seed RANDOM_SEED
-(GloVe from DATA.GLOVE_CACHE, else ``hashed_random_embeddings``, for the
-tied head) and copied to the device; the z-noise generator is seeded with
-RANDOM_SEED + 1. Checkpoints are the port's directories
-(``training/checkpointing.py``), which ``--start-from-checkpoint NAME``
-resumes step for step and the port's inference CLI reads.
+Parameters are drawn by ``init_captioner`` (``init_baseline`` for
+``--model baseline``) on the CPU with seed RANDOM_SEED (GloVe from
+DATA.GLOVE_CACHE, else ``hashed_random_embeddings``, for the tied head) and
+copied to the device; the z-noise generator is seeded with RANDOM_SEED + 1.
+The baseline trains the masked cross entropy alone (no KL, no decoder
+freeze), as the JAX CLI's: ``--device-corpus`` is off for it and
+``--steps-per-dispatch`` above 1 is refused. Checkpoints are the port's
+directories (``training/checkpointing.py``), which
+``--start-from-checkpoint NAME`` resumes step for step and the port's
+inference CLI reads.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from style_seqcvae_tpu_torch.data.vocabulary import (
     add_constraint_words_to_vocabulary,
 )
 from style_seqcvae_tpu_torch.device import resolve_device
+from style_seqcvae_tpu_torch.models.baseline import init_baseline
 from style_seqcvae_tpu_torch.models.captioner import (
     CaptionerConfig,
     hashed_random_embeddings,
@@ -52,6 +58,7 @@ from style_seqcvae_tpu_torch.models.captioner import (
 from style_seqcvae_tpu_torch.training.checkpointing import CheckpointManager
 from style_seqcvae_tpu_torch.training.trainer import (
     create_train_state,
+    make_baseline_train_step,
     make_chained_train_step,
     make_corpus_chained_train_step,
     make_corpus_train_step,
@@ -65,7 +72,7 @@ parser.add_argument("--config", required=True)
 parser.add_argument("--config-override", nargs="*", default=[])
 parser.add_argument("--model", choices=["cvae", "baseline"], default="cvae",
                     help="cvae = Style-SeqCVAE (var_updown); baseline = "
-                         "non-variational UpDown (updown-baseline; ROADMAP A7)")
+                         "non-variational UpDown (updown-baseline)")
 parser.add_argument("--serialization-dir", default="checkpoints/experiment")
 parser.add_argument("--checkpoint-every", type=int, default=10000)
 parser.add_argument("--start-from-checkpoint", default="",
@@ -112,9 +119,6 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
     (the first iteration) and the :class:`StepTimer` summary (``data_ms``,
     ``step_ms``: host milliseconds a step)."""
     _A = parser.parse_args(argv)
-    if _A.model == "baseline":
-        raise NotImplementedError("--model baseline: the baseline family is not ported "
-                                  "yet (ROADMAP A7)")
     if _A.num_data not in (-1, 1) or _A.num_model != 1:
         raise NotImplementedError("--num-data/--num-model other than one device: "
                                   "multi-GPU training is not ported yet (ROADMAP A10)")
@@ -147,16 +151,22 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
             latent_dict = LatentDictionary.from_swn_scores(
                 _C.DATA.SWN_SCORES, model_cfg.z_space, model_cfg.latent_embedding_multip)
 
-    params = init_captioner(model_cfg, seed=_C.RANDOM_SEED, device="cpu",
-                            embedding_table=_embedding_table(_C, model_cfg, vocabulary))
+    init = init_baseline if _A.model == "baseline" else init_captioner
+    params = init(model_cfg, seed=_C.RANDOM_SEED, device="cpu",
+                  embedding_table=_embedding_table(_C, model_cfg, vocabulary))
     state = create_train_state(params, _C, model_cfg, _C.RANDOM_SEED + 1, device=device)
     del params
     compute_dtype = torch.bfloat16 if _A.bf16_compute else None
     k_steps = max(1, _A.steps_per_dispatch)
     kld_weight = _C.MODEL.KLD_WEIGHT
+    device_corpus = _A.device_corpus and _A.model != "baseline"
 
     feats_dev, feat_row_of = None, None
-    if _A.device_corpus:
+    if _A.model == "baseline":
+        if k_steps > 1:
+            raise SystemExit("--steps-per-dispatch supports the cvae family")
+        train_step = make_baseline_train_step(model_cfg, compute_dtype)
+    elif device_corpus:
         table, feat_row_of = dataset.feature_table()
         to = compute_dtype or torch.float32
         feats_dev = torch.from_numpy(table).to(device, to)
@@ -197,12 +207,12 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
         for batch in batches:
             model_batch = {"caption_tokens": batch["caption_tokens"],
                            "sentiment": batch["sentiment"]}
-            if _A.device_corpus:
+            if device_corpus:
                 model_batch["feat_idx"] = np.asarray(
                     [feat_row_of[int(i)] for i in batch["image_id"]], np.int64)
             else:
                 model_batch["image_features"] = batch["image_features"]
-            if (latent_dict is not None and not _A.device_corpus
+            if (latent_dict is not None and not device_corpus
                     and batch["obj_atts"] is not None):
                 model_batch["obj_att_embeds"] = latent_dict.translate_obj_atts(
                     batch["obj_atts"], _C.DATA.MAX_BOXES)

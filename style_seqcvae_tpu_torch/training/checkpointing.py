@@ -11,7 +11,8 @@ A checkpoint of the port is a directory holding one ``state.npz`` keyed by
 tree paths as ``weights.save_params_npz`` keys them: ``params/…`` (the JAX
 tree's paths), ``opt_state/trace/…`` (the momentum buffers under the JAX
 optimizer's names), ``opt_state/step`` and ``generator`` (the generator's
-state bytes).
+state bytes). The params are either model family's tree; a restore into
+the other family's state raises ``ValueError`` naming both.
 A directory in any other layout raises ``ValueError`` naming what it holds.
 """
 
@@ -24,7 +25,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from style_seqcvae_tpu_torch.weights import load_params_npz, named_leaves
+from style_seqcvae_tpu_torch.weights import load_params_npz, named_leaves, param_family
 
 STATE_FILE = "state.npz"
 
@@ -109,8 +110,12 @@ class CheckpointManager:
     def restore(self, name: str, target_state):
         """Load the directory ``name`` into ``target_state`` in place (its
         params, momentum buffers, LR schedule, generator and step) and return
-        it."""
+        it. A checkpoint of the other model family raises ``ValueError``."""
         data = read_checkpoint(self._path(name))
+        found, want = param_family(data["params"]), param_family(target_state.params)
+        if found != want:
+            raise ValueError(f"checkpoint {name!r} holds the {found} family's parameters; "
+                             f"the model being trained is the {want} family")
         params = dict(named_leaves(data["params"]))
         trace = dict(named_leaves(data["opt_state"]["trace"]))
         step = int(data["opt_state"]["step"])

@@ -1,5 +1,5 @@
 """Captioner training steps (counterpart of
-``style_seqcvae_tpu/training/trainer.py:21-148``).
+``style_seqcvae_tpu/training/trainer.py:21-178``).
 
 The reference loop (var_updown/scripts/train.py:154-188): objective
 ``mean(loss) + mean(kld) / KLD_WEIGHT``, backward by ``torch.autograd``,
@@ -12,6 +12,10 @@ the state's ``torch.Generator``.
 casts of the f32 master parameters and of the batch's float entries, made
 inside the step as JAX's ``_compute_cast`` makes them (``:37-44``), so the
 gradients reach the f32 masters through the casts.
+
+:func:`make_baseline_train_step` trains the non-variational UpDown
+baseline with the same optimizer; its parameters hold no decoder LSTM, so
+the freeze schedule never touches them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from style_seqcvae_tpu_torch.device import resolve_device
+from style_seqcvae_tpu_torch.models.baseline import baseline_train_forward
 from style_seqcvae_tpu_torch.models.captioner import CaptionerConfig, train_forward
 from style_seqcvae_tpu_torch.training.optimizer import (
     SGDFreezeSchedule,
@@ -71,26 +76,37 @@ def _on_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.T
             for k, v in batch.items()}
 
 
+def _sgd_step(state: TrainState, batch: Dict[str, Any], compute_dtype, objective):
+    """One optimizer step on ``objective(params, batch) -> (loss, metrics)``,
+    evaluated on the compute-dtype casts of the params and the batch: the
+    freeze schedule's preparation, the backward, the clip, SGD and LR."""
+    iteration = state.step + 1
+    state.tx.prepare(iteration)
+    batch = cast_floats(_on_device(batch, state.device), compute_dtype)
+    loss, metrics = objective(cast_floats(state.params, compute_dtype), batch)
+    loss.backward()
+    state.tx.update()
+    state.step = iteration
+    return state, metrics
+
+
 def _make_train_body(model_cfg: CaptionerConfig, kld_weight: float, compute_dtype=None):
     """The (state, batch, eps) → (state, metrics) step shared by every
     step function."""
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    eps: Optional[torch.Tensor] = None):
-        iteration = state.step + 1
-        state.tx.prepare(iteration)
-        batch = cast_floats(_on_device(batch, state.device), compute_dtype)
-        out = train_forward(cast_floats(state.params, compute_dtype), model_cfg, batch,
-                            rng=state.generator,
-                            eps=None if eps is None else torch.as_tensor(eps, device=state.device))
-        reconstr = out["loss"].mean()
-        kld = out["kld"].mean()
-        loss = reconstr + kld / kld_weight
-        loss.backward()
-        state.tx.update()
-        state.step = iteration
-        return state, {"loss": loss.detach(), "reconstr_loss": reconstr.detach(),
-                       "kld_loss": kld.detach()}
+        def objective(params, batch):
+            out = train_forward(params, model_cfg, batch, rng=state.generator,
+                                eps=None if eps is None
+                                else torch.as_tensor(eps, device=state.device))
+            reconstr = out["loss"].mean()
+            kld = out["kld"].mean()
+            loss = reconstr + kld / kld_weight
+            return loss, {"loss": loss.detach(), "reconstr_loss": reconstr.detach(),
+                          "kld_loss": kld.detach()}
+
+        return _sgd_step(state, batch, compute_dtype, objective)
 
     return train_step
 
@@ -101,6 +117,26 @@ def make_train_step(model_cfg: CaptionerConfig, kld_weight: float, compute_dtype
     (``image_features``, ``caption_tokens``, ``sentiment``, optional
     ``obj_att_embeds``); metrics are 0-dim tensors on the device."""
     return _make_train_body(model_cfg, kld_weight, compute_dtype)
+
+
+def make_baseline_train_step(model_cfg: CaptionerConfig, compute_dtype=None):
+    """``train_step(state, batch) -> (state, metrics)`` for the baseline family
+    (JAX ``trainer.py:151-178``): the objective is the mean of
+    ``baseline_train_forward``'s length-scaled cross entropy, with the same
+    SGD, clip and LR decay as :func:`make_train_step`; metrics ``loss``,
+    ``reconstr_loss`` (the same value) and ``kld_loss`` (0), 0-dim tensors on
+    the device."""
+
+    def objective(params, batch):
+        loss = baseline_train_forward(params, model_cfg, batch)["loss"].mean()
+        metric = loss.detach()
+        return loss, {"loss": metric, "reconstr_loss": metric,
+                      "kld_loss": torch.zeros_like(metric)}
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        return _sgd_step(state, batch, compute_dtype, objective)
+
+    return train_step
 
 
 def _chain(step):

@@ -8,11 +8,14 @@ tree's layout.
 
 The input of the converters is the JAX params pytree with numpy arrays as
 leaves (or the nested dicts that :func:`load_params_npz` returns), in its own
-nesting: a dict with ``embedding``, ``cell`` (a ``CellParams`` NamedTuple
-holding ``LSTMCellParams`` and ``AttentionParams``) and ``output_projection``
-or ``output_layer`` dicts. NamedTuple fields are read by name, so the JAX
-classes themselves are never imported. Layouts stay as they are: both sides
-compute the same thing.
+nesting: a dict with ``embedding``, ``cell`` and ``output_projection`` or
+``output_layer`` dicts. ``cell`` is the Style-SeqCVAE family's ``CellParams``
+(``attention_lstm``, ``attention``, ``encoder_lstm``, ``decoder_lstm``,
+``fc_*``) or the baseline family's ``BaselineCellParams``
+(``attention_lstm``, ``attention``, ``language_lstm``); :func:`param_family`
+tells them apart by these keys. NamedTuple fields are read by name, so the
+JAX classes themselves are never imported. Layouts stay as they are: both
+sides compute the same thing.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from style_seqcvae_tpu_torch.device import resolve_device
 from style_seqcvae_tpu_torch.models.attention import AttentionParams
+from style_seqcvae_tpu_torch.models.baseline import BaselineCellParams
 from style_seqcvae_tpu_torch.models.updown_cell import CellParams
 from style_seqcvae_tpu_torch.ops.lstm import LSTMCellParams
 
@@ -93,12 +97,37 @@ def _field(node: Any, name: str) -> Any:
     return node[name] if isinstance(node, dict) else getattr(node, name)
 
 
+FAMILIES = ("cvae", "baseline")
+
+
+def param_family(tree: Dict[str, Any]) -> str:
+    """``"cvae"`` or ``"baseline"``: the captioner family whose parameter tree
+    ``tree`` is (JAX's or the port's), read from the keys of its ``cell``;
+    raises ``ValueError`` on a tree of neither."""
+    cell = tree.get("cell") if isinstance(tree, dict) else None
+    keys = set(cell._fields if hasattr(cell, "_fields") else cell or ())
+    if {"encoder_lstm", "decoder_lstm"} <= keys:
+        return "cvae"
+    if "language_lstm" in keys:
+        return "baseline"
+    raise ValueError(f"not a captioner parameter tree: its cell holds {sorted(keys)}")
+
+
 def from_jax_params(tree: Dict[str, Any], *,
                     device: Optional[Union[str, torch.device]] = None,
-                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                    dtype: Optional[torch.dtype] = None,
+                    family: Optional[str] = None) -> Dict[str, Any]:
     """JAX captioner params (numpy leaves) → the port's params on ``device``.
-    ``dtype`` casts every leaf; ``None`` keeps the leaves' own type."""
+    ``dtype`` casts every leaf; ``None`` keeps the leaves' own type. The
+    family comes from the tree (:func:`param_family`); a ``family`` that is
+    given must be the tree's, else ``ValueError`` names what was found."""
     dev = resolve_device(device)
+    found = param_family(tree)
+    if family is not None and family != found:
+        if family not in FAMILIES:
+            raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
+        raise ValueError(f"a {family} model was asked for, but the parameters are the "
+                         f"{found} family's")
 
     def t(x) -> torch.Tensor:
         out = torch.from_numpy(np.array(x, copy=True))
@@ -109,19 +138,23 @@ def from_jax_params(tree: Dict[str, Any], *,
 
     cell = tree["cell"]
     att = _field(cell, "attention")
-    params: Dict[str, Any] = {
-        "embedding": t(tree["embedding"]),
-        "cell": CellParams(
+    attention = AttentionParams(*(t(_field(att, f)) for f in AttentionParams._fields))
+    if found == "baseline":
+        cell_params = BaselineCellParams(
+            attention_lstm=lstm(_field(cell, "attention_lstm")), attention=attention,
+            language_lstm=lstm(_field(cell, "language_lstm")))
+    else:
+        cell_params = CellParams(
             attention_lstm=lstm(_field(cell, "attention_lstm")),
-            attention=AttentionParams(*(t(_field(att, f)) for f in AttentionParams._fields)),
+            attention=attention,
             encoder_lstm=lstm(_field(cell, "encoder_lstm")),
             decoder_lstm=lstm(_field(cell, "decoder_lstm")),
             fc_mean_w=t(_field(cell, "fc_mean_w")),
             fc_mean_b=t(_field(cell, "fc_mean_b")),
             fc_log_var_w=t(_field(cell, "fc_log_var_w")),
             fc_log_var_b=t(_field(cell, "fc_log_var_b")),
-        ),
-    }
+        )
+    params: Dict[str, Any] = {"embedding": t(tree["embedding"]), "cell": cell_params}
     for head in ("output_projection", "output_layer"):
         if head in tree:
             params[head] = {k: t(v) for k, v in tree[head].items()}
@@ -129,8 +162,9 @@ def from_jax_params(tree: Dict[str, Any], *,
 
 
 def to_jax_params(params: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's captioner params → nested dicts of numpy arrays in the JAX
-    tree's layout and names (``cell`` a dict of ``CellParams``' fields),
+    """The port's captioner params (either family) → nested dicts of numpy
+    arrays in the JAX tree's layout and names (``cell`` a dict of the cell
+    NamedTuple's fields),
     the inverse of :func:`from_jax_params`: the JAX package rebuilds its
     tree from them, and :func:`save_params_npz` writes them as it writes
     the JAX tree."""

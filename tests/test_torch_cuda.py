@@ -805,3 +805,68 @@ def test_train_step_bf16_finite_and_frozen_leaves_have_no_grad(dev):
         for path, p in named_leaves(state.params):
             assert p.dtype == torch.float32 and p.is_cuda
             assert (p.grad is None) == (labels[path] in frozen), (it, path)
+
+
+# the baseline family on the GPU against the CPU: no kernel on its path, so
+# its f32 decodes must be token-identical and its train steps agree to the
+# f32 train step's tolerances
+def _baseline_model(dev):
+    from style_seqcvae_tpu_torch.models.baseline import init_baseline
+
+    cfg = tcap.CaptionerConfig(**DEC)
+    params = init_baseline(cfg, seed=3, device="cpu")
+    rng = np.random.RandomState(4)
+    feats = rng.randn(DEC_B, 6, cfg.image_feature_size).astype(np.float32)
+    return cfg, params, to_device(params, dev), feats
+
+
+@pytest.mark.cuda
+def test_baseline_decodes_gpu_match_cpu(dev):
+    cfg, params, params_gpu, feats = _baseline_model(dev)
+    cpu = DecodeHarness(params, cfg, device="cpu", family="baseline")
+    gpu = DecodeHarness(params_gpu, cfg, device=dev, family="baseline")
+    rng = np.random.RandomState(5)
+    tables = pad_tables_batch([[fsm_to_tables(_simple_fsm(rng, cfg.vocab_size))]
+                               for _ in range(DEC_B)], 1)
+    T, K = cfg.max_caption_length, cfg.beam_size
+    counts = (vocab_topk_lse.launches, topk_lse.launches)
+    noise = rng.randn(1, T, DEC_B, DEC_S, K, cfg.z_space).astype(np.float32)
+    want = cpu.decode_cbs(feats, None, None, tables, 3, noise, 1)
+    got = gpu.decode_cbs(feats, None, None, tables, 3, noise, 1)
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=1e-4)
+    want = cpu.decode_beam(feats, None, None, noise[:, :, :, 0], 1)
+    got = gpu.decode_beam(feats, None, None, noise[:, :, :, 0], 1)
+    assert torch.equal(got[0].cpu(), want[0])
+    for method, kw in SAMPLE_METHODS.items():
+        inner = (K,) if method == "gumbel" else ()
+        z = rng.randn(DEC_NZ, T, DEC_B, K if inner else 1, cfg.z_space).astype(np.float32)
+        g = -np.log(rng.exponential(size=(DEC_NZ, T, DEC_B) + inner + (cfg.vocab_size,))
+                    ).astype(np.float32)
+        args = (feats, None, None, (z, g), DEC_NZ, method)
+        assert torch.equal(gpu.decode_sample(*args, **kw).cpu(), cpu.decode_sample(*args, **kw))
+    assert (vocab_topk_lse.launches, topk_lse.launches) == counts     # no kernel
+
+
+@pytest.mark.cuda
+def test_baseline_train_step_gpu_matches_cpu(dev):
+    from style_seqcvae_tpu_torch.models.baseline import init_baseline
+    from style_seqcvae_tpu_torch.training.trainer import (
+        create_train_state,
+        make_baseline_train_step,
+    )
+    from style_seqcvae_tpu_torch.weights import named_leaves
+
+    cfg, config, _, batches = _train_setup()
+    params = init_baseline(cfg, seed=1, device="cpu")
+    step = make_baseline_train_step(cfg)
+    states = [create_train_state(params, config, cfg, seed=0, device=d) for d in ("cpu", dev)]
+    for b, _ in batches:
+        out = [step(s, b) for s in states]
+        states = [o[0] for o in out]
+        for name in out[0][1]:
+            torch.testing.assert_close(out[1][1][name].cpu(), out[0][1][name],
+                                       rtol=TRAIN_METRIC_RTOL, atol=0)
+    for (path, c), (_, g) in zip(named_leaves(states[0].params), named_leaves(states[1].params)):
+        err = ((g.detach().cpu() - c.detach()).norm() / c.detach().norm()).item()
+        assert err <= TRAIN_PARAM_REL, f"{path}: off by {err:.3g}"

@@ -204,6 +204,68 @@ def test_make_step_fn_matches_jax_and_optimized(mode, contract):
                                    atol=ATOL, rtol=ATOL)
 
 
+# bf16 keeps 8 bits, and XLA rounds fused elementwise chains once where
+# PyTorch rounds each operation: values within 2e-2 of the largest
+# magnitude of the compared tensor (the tied head's logits reach ~30, whose
+# bf16 step is 0.125)
+BF16_REL = 2e-2
+
+
+def _lstm_input_dtypes(monkeypatch, module):
+    """Record the dtype of every LSTM input ``module``'s cell step builds."""
+    seen = []
+    real = module.lstm_cell
+
+    def spy(params, x, h, c):
+        seen.append(str(x.dtype).split(".")[-1])
+        return real(params, x, h, c)
+
+    monkeypatch.setattr(module, "lstm_cell", spy)
+    return seen
+
+
+@pytest.mark.parametrize("mode", ["mode1", "mode2_glove"])
+def test_make_step_fn_bf16_dtypes_follow_jax(monkeypatch, mode):
+    """The unfolded inference step in bf16 over three steps: the inputs of
+    the attention and decoder LSTMs, every state field and the log-probs
+    have JAX's dtypes (the f32 prior makes z, and so the decoder LSTM's
+    input, f32: ``jnp.concatenate`` promotes), and the values agree."""
+    from style_seqcvae_tpu.training.trainer import _compute_cast
+    from style_seqcvae_tpu_torch.weights import cast_floats
+
+    jcfg, tcfg = _cfg(**MODES[mode])
+    params, tparams = _params(jcfg, 1)
+    jp, tp = _compute_cast(params, jnp.bfloat16), cast_floats(tparams, torch.bfloat16)
+    feats, sent, oae = _inputs(jcfg, 2)
+    bf = lambda a: None if a is None else jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    jctx = jcap.make_decode_context(jp, jcfg, bf(feats), sentiment=_j(sent),
+                                    obj_att_embeds=bf(oae))
+    tctx = tcap.make_decode_context(tp, tcfg, _t(feats).bfloat16(), sentiment=_t(sent),
+                                    obj_att_embeds=None if oae is None else _t(oae).bfloat16())
+    jseen = _lstm_input_dtypes(monkeypatch, jcell)
+    tseen = _lstm_input_dtypes(monkeypatch, tcell)
+    jstep, tstep = jcap.make_step_fn(jp, jcfg, jctx), tcap.make_step_fn(tp, tcfg, tctx)
+    jstate = jcell.init_cell_state((B,), H, jnp.bfloat16)
+    tstate = tcell.init_cell_state((B,), H, device=torch.device("cpu"), dtype=torch.bfloat16)
+    rng = np.random.RandomState(3)
+    tokens = np.full((B,), 1)
+    for t in range(3):
+        eps = rng.randn(B, Z).astype(np.float32)
+        jlp, jstate = jstep(jnp.asarray(tokens), jstate, jnp.asarray(eps))
+        tlp, tstate = tstep(torch.from_numpy(tokens), tstate, _t(eps))
+        assert tseen == jseen, f"step {t}: LSTM inputs {tseen}, JAX {jseen}"
+        pairs = [("log_probs", tlp, jlp)] + [(f, getattr(tstate, f), getattr(jstate, f))
+                                            for f in tcell.CellState._fields]
+        for name, got, want in pairs:
+            assert str(got.dtype).split(".")[-1] == str(want.dtype), f"step {t} {name}"
+            want = np.asarray(want, np.float32)
+            np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_REL,
+                                       atol=BF16_REL * np.abs(want).max(),
+                                       err_msg=f"step {t} {name}")
+        tokens = np.asarray(jnp.argmax(jlp, axis=-1))      # JAX's choice feeds both
+    assert jseen[1::2] == ["float32"] * 3                   # the decoder LSTM's input
+
+
 # ------------------------------------------------ golden fixture, beam, greedy
 
 

@@ -13,6 +13,10 @@ unchanged).
   predictions JSON, byte for byte, and the same printed lines.
 * The port CLI alone: schema, count and order, the tail group,
   determinism, the counted fallback, and what it refuses.
+* ``--model baseline``: the predictions JSON byte-equal to the JAX CLI's
+  and the same printed lines (JAX's ``init_baseline`` shared through a
+  ``.npz``), one z-sample an image; under ``--sampler topk`` the config's
+  z-samples.
 """
 
 import importlib.util
@@ -27,6 +31,7 @@ import pytest
 import torch
 
 from style_seqcvae_tpu.decoding import harness as jharness
+from style_seqcvae_tpu.models import baseline as jbase
 from style_seqcvae_tpu.models import captioner as jcap
 from style_seqcvae_tpu.utils.jit_init import jit_init
 from style_seqcvae_tpu_torch.config import Config
@@ -180,8 +185,8 @@ def _selectable(prepared):
     return out
 
 
-def _same_weights(cfg_path, npz):
-    """JAX's init as the JAX CLI draws it, saved for the port."""
+def _same_weights(cfg_path, npz, init=jcap.init_captioner):
+    """JAX's init (``init``) as the JAX CLI draws it, saved for the port."""
     from style_seqcvae_tpu.config import Config as JConfig
     from style_seqcvae_tpu.data import vocabulary as jvoc
 
@@ -194,7 +199,7 @@ def _same_weights(cfg_path, npz):
     emb = jcap.hashed_random_embeddings(tokens, cfg.embedding_size, cfg.pad_index)
     np.testing.assert_array_equal(
         tcap.hashed_random_embeddings(tokens, cfg.embedding_size, cfg.pad_index), emb)
-    params = jit_init(jcap.init_captioner, cfg, jax.random.PRNGKey(C.RANDOM_SEED), emb)
+    params = jit_init(init, cfg, jax.random.PRNGKey(C.RANDOM_SEED), emb)
     save_params_npz(jax.tree_util.tree_map(np.asarray, params), str(npz))
 
 
@@ -215,6 +220,39 @@ def test_whole_cli_matches_jax_cli(tmp_path, capsys, monkeypatch, world):
     assert got_out == want_out
     preds = json.loads(got)
     assert len(preds) == 4 * NZ and len({p["caption"] for p in preds}) > 1
+
+
+@pytest.mark.parametrize("world", ["sentiment", "plain"])
+def test_whole_cli_baseline_matches_jax_cli(tmp_path, capsys, monkeypatch, world):
+    cfg = write_world(tmp_path, world)
+    _same_weights(cfg, tmp_path / "params.npz", init=jbase.init_baseline)
+    out = tmp_path / "preds.json"
+    common = ["--config", str(cfg), "--output-path", str(out), "--cpu", "--batch-images", "2",
+              "--max-images", "4", "--model", "baseline"]
+    monkeypatch.setattr("sys.argv", ["inference.py", *common])
+    J.main()
+    want, want_out = out.read_bytes(), capsys.readouterr().out
+    out.unlink()
+    stats = {}
+    assert P.main(common + ["--checkpoint-path", str(tmp_path / "params.npz")],
+                  stats=stats) == 0
+    got, got_out = out.read_bytes(), capsys.readouterr().out
+    assert got == want
+    assert got_out == want_out
+    preds = json.loads(got)
+    assert len(preds) == 4 and stats["fallbacks"] == 0       # one z-sample an image
+    assert len({p["caption"] for p in preds}) > 1
+
+
+def test_port_cli_baseline_sampler(tmp_path):
+    cfg = write_world(tmp_path, "sentiment")
+    preds, stats = _run(cfg, tmp_path / "s.json", "--model", "baseline", "--sampler", "topk",
+                        "--batch-images", "2", "--max-images", "3")
+    assert len(preds) == 3 * NZ and stats["fallbacks"] == 0   # the config's z-samples
+    assert [p["image_id"] for p in preds[:NZ]] == [preds[0]["image_id"]] * NZ
+    again, _ = _run(cfg, tmp_path / "t.json", "--model", "baseline", "--sampler", "topk",
+                    "--batch-images", "2", "--max-images", "3")
+    assert again == preds
 
 
 def _run(cfg, out, *extra):
@@ -270,8 +308,9 @@ def test_port_cli_fallback_and_what_it_raises(tmp_path, capsys, monkeypatch):
     monkeypatch.undo()
 
     base = ["--config", str(cfg), "--output-path", str(tmp_path / "h.json"), "--cpu"]
-    with pytest.raises(NotImplementedError, match="A7"):
-        P.main(base + ["--model", "baseline"])
+    # the baseline family runs (it was refused until it was ported)
+    assert P.main(base + ["--model", "baseline", "--max-images", "2"]) == 0
+    assert len(json.loads((tmp_path / "h.json").read_text())) == 2
     with pytest.raises(NotImplementedError, match="A10"):
         P.main(base + ["--num-data", "2"])
     # a directory without the named checkpoint of the port's layout

@@ -54,7 +54,8 @@ def test_port_imports_no_jax():
                  "data.latents", "data.datasets", "data.prefetch", "decoding.constraint_filter",
                  "utils.features_io", "scripts.inference", "scripts.train",
                  "training.optimizer", "training.trainer", "training.checkpointing",
-                 "utils.logging", "utils.torch_import"):
+                 "utils.logging", "utils.torch_import", "models.baseline", "evaluation.eval",
+                 "scripts.eval"):
         assert "style_seqcvae_tpu_torch." + name in modules
     code = "\n".join([
         "import sys",
@@ -115,6 +116,40 @@ def test_entry_points_refuse_cpu_fallback(tmp_path):
         train_cli.main(["--config", str(ROOT / "configs" / "style_seqcvae_senticap.yml"),
                         "--serialization-dir", str(tmp_path / "run")])
     assert not (tmp_path / "run").exists()
+
+
+def test_baseline_entry_points_refuse_cpu_fallback(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from style_seqcvae_tpu_torch.models.baseline import init_baseline
+    from style_seqcvae_tpu_torch.scripts import inference as inference_cli
+    from style_seqcvae_tpu_torch.training.trainer import make_baseline_train_step
+
+    cfg = CaptionerConfig(vocab_size=10, image_feature_size=4, embedding_size=300,
+                          hidden_size=4, attention_projection_size=4, z_space=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_baseline(cfg)
+    params = init_baseline(cfg, device="cpu")
+    feats = np.zeros((1, 3, 4), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeHarness(params, cfg, family="baseline")
+    seqs, _ = DecodeHarness(params, cfg, device="cpu", family="baseline").decode_beam(
+        feats, None, None, torch.Generator().manual_seed(0), 1)
+    assert seqs.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(params, Config(), cfg, seed=0)
+    state = create_train_state(params, Config(), cfg, seed=0, device="cpu")
+    batch = {"image_features": np.ones((2, 3, 4), np.float32),
+             "caption_tokens": np.full((2, 3), 2, np.int32)}
+    state, metrics = make_baseline_train_step(cfg)(state, batch)
+    assert metrics["loss"].device.type == "cpu" and state.step == 1
+    config = str(ROOT / "configs" / "style_seqcvae_senticap.yml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--config", config, "--model", "baseline",
+                        "--serialization-dir", str(tmp_path / "run")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference_cli.main(["--config", config, "--model", "baseline",
+                            "--output-path", str(tmp_path / "p.json")])
 
 
 def test_detector_entry_points_refuse_cpu_fallback():

@@ -15,7 +15,11 @@ alone.
   ``--device-corpus`` (modes 1 and 2) equal to the plain run bit for bit;
   ``--bf16-compute`` finite; the port's inference CLI decoding from the
   checkpoint directory as from the same params in a ``.npz``; ``python -m``
-  as a user runs it; the refusals (baseline, multi-GPU).
+  as a user runs it; the refusal of multi-GPU training.
+* ``--model baseline``: the per-step losses equal to the JAX CLI's within
+  rtol 1e-5 (the port's ``init_baseline`` patched to JAX's); checkpoints,
+  a resume and the inference CLI decoding the checkpoint; the refusal of
+  ``--steps-per-dispatch 2`` (JAX's message) and of a cvae checkpoint.
 """
 
 import importlib.util
@@ -30,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from style_seqcvae_tpu.models import baseline as jbase
 from style_seqcvae_tpu.models import captioner as jcap
 from style_seqcvae_tpu.utils.jit_init import jit_init
 from style_seqcvae_tpu_torch.config import Config
@@ -215,10 +220,88 @@ def test_train_cli_bf16_compute(tmp_path):
 def test_train_cli_refusals(tmp_path):
     cfg = write_train_world(tmp_path / "w", iterations=2)
     base = ["--config", str(cfg), "--serialization-dir", str(tmp_path / "r"), "--cpu"]
-    with pytest.raises(NotImplementedError, match="A7"):
-        P.main(base + ["--model", "baseline"])
+    # the baseline family runs (it was refused until it was ported)
+    assert P.main(base + ["--model", "baseline"]) == 0
+    assert "language_lstm" in read_checkpoint(str(tmp_path / "r" / "checkpoint_2"))["params"][
+        "cell"]
     with pytest.raises(NotImplementedError, match="A10"):
         P.main(base + ["--num-data", "2"])
+    with pytest.raises(NotImplementedError, match="A10"):
+        P.main(base + ["--model", "baseline", "--num-data", "2"])
+
+
+def test_port_cli_baseline_losses_match_jax_cli(tmp_path, monkeypatch):
+    # batch 8: the JAX CLI's mesh spans the 8 CPU devices of tests/conftest.py
+    cfg = write_train_world(tmp_path / "w", n_images=40, iterations=6, batch=8)
+    monkeypatch.setattr(sys, "argv", ["train.py", "--config", str(cfg), "--cpu", "--model",
+                                      "baseline", "--checkpoint-every", "100",
+                                      "--serialization-dir", str(tmp_path / "jax")])
+    J.main()
+
+    def jax_init(model_cfg, seed, device, embedding_table):
+        jp = jit_init(jbase.init_baseline, jcap.CaptionerConfig(*model_cfg),
+                      jax.random.PRNGKey(seed), embedding_table)
+        return from_jax_params(jax.tree_util.tree_map(np.asarray, jp), device=device)
+
+    monkeypatch.setattr(P, "init_baseline", jax_init)
+    _run_port(cfg, tmp_path / "port", "--model", "baseline", "--checkpoint-every", "100")
+    jrows, trows = _rows(tmp_path / "jax" / "metrics.jsonl"), _rows(tmp_path / "port" /
+                                                                    "metrics.jsonl")
+    assert [r["step"] for r in trows] == [r["step"] for r in jrows] == list(range(1, 7))
+    for j, t in zip(jrows, trows):
+        for name in ("loss", "reconstr_loss", "kld_loss"):
+            np.testing.assert_allclose(t[name], j[name], rtol=1e-5,
+                                       err_msg=f"step {t['step']} {name}")
+        assert t["kld_loss"] == 0.0
+
+
+def test_train_cli_baseline_checkpoints_resume_and_refusals(tmp_path, capsys):
+    cfg = write_train_world(tmp_path / "w", iterations=6)
+    C = Config(str(cfg))
+    part = tmp_path / "part"
+    _run_port(cfg, part, "--model", "baseline", "--checkpoint-every", "3", "--max-iterations", "3")
+    capsys.readouterr()
+    stats = _run_port(cfg, part, "--model", "baseline", "--checkpoint-every", "3",
+                      "--start-from-checkpoint", "checkpoint_3")
+    assert "resumed from step 3" in capsys.readouterr().out
+    assert stats["start"] == 4 and stats["steps"] == 3
+    # the resumed run is the checkpoint's state stepped on the batches the
+    # CLI feeds after a restart
+    model_cfg = tcap.CaptionerConfig.from_config(C, Vocabulary.from_files(C.DATA.VOCABULARY))
+    from style_seqcvae_tpu_torch.models.baseline import init_baseline
+
+    state = ttrainer.create_train_state(
+        init_baseline(model_cfg, seed=1, device="cpu",
+                      embedding_table=np.zeros((model_cfg.vocab_size, 300), np.float32)),
+        C, model_cfg, seed=9, device="cpu")
+    state = CheckpointManager(str(part)).restore("checkpoint_3", state)
+    step = ttrainer.make_baseline_train_step(model_cfg)
+    for b in _host_batches(C, 3):
+        state, _ = step(state, b)
+    got = _params(part / "checkpoint_6")
+    assert set(read_checkpoint(str(part / "checkpoint_6"))["params"]["cell"]) == {
+        "attention_lstm", "attention", "language_lstm"}
+    for path, p in named_leaves(state.params):
+        np.testing.assert_array_equal(got[path], p.detach().numpy(), err_msg=path)
+
+    # the inference CLI decodes the baseline checkpoint; a cvae model is refused it
+    over = ["--config-override", "DATA.DO_LOAD_COCO", "false", "DATA.DO_LOAD_SENTICAP", "false",
+            "MODEL.USE_CBS", "false", "MODEL.N_Z_SAMPLES", "2", "MODEL.BEAM_SIZE", "2"]
+    ckpt = ["--checkpoint-path", str(part), "--checkpoint-name", "checkpoint_6"]
+    out = tmp_path / "preds.json"
+    assert PI.main(["--config", str(cfg), "--output-path", str(out), "--cpu", "--model",
+                    "baseline", *ckpt, *over]) == 0
+    assert len(json.loads(out.read_text())) == 4            # one z-sample an image
+    with pytest.raises(ValueError, match="parameters are the baseline family's"):
+        PI.main(["--config", str(cfg), "--output-path", str(out), "--cpu", *ckpt, *over])
+
+    # JAX's refusal of chained steps for the baseline, and a cvae checkpoint
+    with pytest.raises(SystemExit, match="supports the cvae family"):
+        _run_port(cfg, tmp_path / "k", "--model", "baseline", "--steps-per-dispatch", "2")
+    _run_port(cfg, tmp_path / "cvae", "--max-iterations", "2")
+    with pytest.raises(ValueError, match="holds the cvae family's parameters"):
+        _run_port(cfg, tmp_path / "cvae", "--model", "baseline", "--start-from-checkpoint",
+                  "checkpoint_2")
 
 
 def test_train_cli_runs_as_a_module(tmp_path):
