@@ -119,6 +119,38 @@ one JSON line per phase as it goes:
    predictions and on train_cli's 320 cvae captions: seconds, every metric
    (finite, each oracle at or above its mean over z) and which METEOR ran.
    The kernels launch 0 times in phases 16-19;
+20. ``images``: the JPEG fixtures (``tests/fixtures/images``) decoded on the
+   card by nvjpeg against PIL's pixels (their ``.npy``), each within its own
+   measured bound (``nvjpeg_bounds.json`` beside them); ``photo_a`` as
+   PIL's PNG (``photo_a.png``, most rows Paeth) and as PPM, exact on the
+   card; the decode times of a 480 x 640 JPEG, PNG and PPM and the prepare
+   time to 600 x 800;
+21. ``extract_cli``: the extract CLI over 32 images of 480 x 640 (30 JPEGs,
+   the two photo fixtures in turn, one PNG, one PPM) with config 5's
+   detector (ResNet-101, 81
+   classes, 98 attributes, seeded weights passed as a ``.npz``), canvas 640
+   x 1024, batch 16, ``--thresh 0.013``: images/s, the seconds of decode and
+   prepare, forward, host post and write, detections per image, kernel C
+   once and D once a batch (the host selection's per-class NMS is numpy, as
+   JAX's); features.h5 read back by ``FeaturesReader``; then
+   ``extract_cli_inference``, the inference CLI on that features.h5 (20 z,
+   bf16, kernel A 19 times a group of 16);
+22. ``serve_agree``: a small f32 serve (ResNet-50, 81 classes, 98
+   attributes, 4 images): the card's detector outputs copied to the CPU,
+   then the constraints, tables and decode on both sides: equal tables,
+   identical captions, log-probs within 1e-5;
+23. ``serve``: ``serving.make_serve_fn`` at full width (config 5's detector,
+   config 3's captioner, 20 z, beam 5, 100 boxes, bf16, canvas 608 x 928,
+   mode 1, bench.py's seeded table of 98 attributes): one request (median
+   of 5), groups of 16 (median of 3, and each stage synchronised alone),
+   images/s, captions/s, constraints and distinct captions per image, peak
+   memory, and one group's launches (A 19, C 1, D 2);
+24. ``serve_http``: the serve CLI started as a user starts it
+   (``--http 0 --canvas 608 928 --batch-requests 8``, a subprocess) and
+   ``scripts/load_test.py`` posting a 480 x 640 JPEG at 4 and 12 requests/s
+   and its PNG at 4 requests/s (decoded on the host by the server's
+   worker processes), 10 s each: p50, p95 and p99 ms, throughput, errors (any
+   fails); the server is stopped after;
 
 then the ``{"kernels": [...]}`` summary, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -131,11 +163,16 @@ import contextlib
 import gc
 import io
 import json
+import os
+import pickle
 import random
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -143,7 +180,10 @@ import numpy as np
 import torch
 
 from style_seqcvae_tpu_torch.config import Config
+from style_seqcvae_tpu_torch.data import image_decode
+from style_seqcvae_tpu_torch.data.config_attrib_selection import attrib_selection
 from style_seqcvae_tpu_torch.data.datasets import EvaluationDatasetWithConstraints
+from style_seqcvae_tpu_torch.data.detection import prepare_image
 from style_seqcvae_tpu_torch.data.vocabulary import (
     BOUNDARY_TOKEN,
     UNK_TOKEN,
@@ -160,6 +200,7 @@ from style_seqcvae_tpu_torch.decoding.cbs_fast import (
     fsm_to_tables,
     stack_fsm_tables,
 )
+from style_seqcvae_tpu_torch.decoding.device_fsm import AttributeWordformTable, draw_gumbel
 from style_seqcvae_tpu_torch.decoding.fsm import pack_fsm
 from style_seqcvae_tpu_torch.decoding.harness import SAMPLERS, DecodeHarness, pad_tables_batch
 from style_seqcvae_tpu_torch.evaluation import metrics as eval_metrics
@@ -192,8 +233,11 @@ from style_seqcvae_tpu_torch.models.detector.rpn import (
 )
 from style_seqcvae_tpu_torch.ops.kernels import _build, nms, roi_align, topk_lse, vocab_topk_lse
 from style_seqcvae_tpu_torch.scripts import eval as eval_cli
+from style_seqcvae_tpu_torch.scripts import extract_features as extract_cli
 from style_seqcvae_tpu_torch.scripts import inference as cli
+from style_seqcvae_tpu_torch.scripts import load_test
 from style_seqcvae_tpu_torch.scripts import train as train_cli
+from style_seqcvae_tpu_torch.serving import make_serve_fn
 from style_seqcvae_tpu_torch.training.checkpointing import read_checkpoint
 from style_seqcvae_tpu_torch.training.trainer import (
     create_train_state,
@@ -203,8 +247,17 @@ from style_seqcvae_tpu_torch.training.trainer import (
     make_corpus_train_step,
     make_train_step,
 )
-from style_seqcvae_tpu_torch.utils.features_io import FeaturesWriter, pack_obj_atts
-from style_seqcvae_tpu_torch.weights import named_leaves, to_device
+from style_seqcvae_tpu_torch.utils.features_io import (
+    FeaturesReader,
+    FeaturesWriter,
+    pack_obj_atts,
+)
+from style_seqcvae_tpu_torch.weights import (
+    named_leaves,
+    save_params_npz,
+    to_device,
+    to_jax_detector_params,
+)
 
 # flagship decode (bench.py:54-55, :424): reference run dims and grid
 V, E, H, P, Z, F, BOXES, STEPS = 10500, 600, 900, 768, 150, 2048, 100, 20
@@ -405,13 +458,20 @@ def ptxas_entries(log: str, needle: str) -> list:
 
 def phase_build() -> None:
     t0 = time.time()
+    # the nvjpeg binding's own library, built beside the kernels' at once
+    nvjpeg_lib = []
+    nvjpeg_thread = threading.Thread(target=lambda: nvjpeg_lib.append(_build.build_nvjpeg()))
+    nvjpeg_thread.start()
     path = _build.build()
     _build.library()
+    nvjpeg_thread.join()
+    if not nvjpeg_lib:
+        fail("the nvjpeg binding did not build")
     log = (path.parent / "build.log").read_text()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "library": str(path),
-          "ptxas": ptxas})
+          "nvjpeg_library": str(nvjpeg_lib[0]), "ptxas": ptxas})
     # kernel A's two paths: bf16 (wgmma product + partial top-k, then the
     # merge) and f32 (CUDA cores); its bf16 shared memory is dynamic
     emit({"phase": "build_vocab_topk_lse", "ptxas": ptxas_entries(log, "vocab_topk_lse")})
@@ -2052,6 +2112,475 @@ def phase_baseline_cli(dev: torch.device, root: Path, cvae_preds: Path) -> None:
                  root / f"scores_{name}.json", name)
 
 
+# ---------------------------------------------------------------- images,
+# the extract CLI and serving (slice 12)
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "images"
+# the JPEG fixtures, PIL's decodes beside them (make_fixtures.py), each
+# fixture's subsampling and its own bound against PIL's pixels
+NVJPEG_BOUNDS = json.loads((FIXTURES / "nvjpeg_bounds.json").read_text())["fixtures"]
+DECODE_TIMED = 5
+# the extract CLI's world: 32 images of 480 x 640 (JPEG, as COCO is, with
+# one PNG and one PPM), config 5's detector (81 classes, 98 attributes) at the CLI's
+# canvas 640 x 1024, batch 16; the threshold sits above the random
+# detector's uniform score (1/81 ~ 0.0123), so that each class keeps its
+# highest-scoring boxes and the cap of 100 binds
+EXTRACT_IMAGES, EXTRACT_BATCH, EXTRACT_CANVAS, EXTRACT_THRESH = 32, 16, (640, 1024), 0.013
+# the COCO-Attributes index: 3 whitelisted attributes on every object (kept)
+# and 8 on one object each (fewer than 20 images: pruned), so the reader
+# keeps 106 - 8 = 98 attributes, config 5's head
+COMMON_ATTS, RARE_ATTS = 3, 8
+# serving at full width (bench.py:679-850): config 5's detector, config
+# 3's captioner, 20 z, beam 5, 100 boxes, bf16, canvas 608 x 928, mode 1,
+# 98 attributes with a seeded wordform table (bench.py:775-791)
+SERVE_ONE_TIMED, SERVE_GROUP, SERVE_GROUP_TIMED = 5, 16, 3
+# serve_agree: the chain after the detector on the card against the CPU, f32
+SERVE_AGREE_LP_RTOL = 1e-5
+# serve_http: the serve CLI as a subprocess, load_test.py at two offered
+# rates of JPEG and one of PNG, for 10 s each
+HTTP_BATCH, HTTP_RATES, HTTP_PNG_RATES = 8, (4.0, 12.0), (4.0,)
+HTTP_DURATION, HTTP_START_TIMEOUT = 10.0, 300
+
+
+def picture(h: int, w: int, seed: int) -> np.ndarray:
+    """A seeded photo-like (h, w, 3) uint8 RGB picture: gradients, noise,
+    filled blocks."""
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([x * 255.0 / w, y * 255.0 / h, (x * 3 + y * 5) % 256], -1)
+    img = img + rng.randn(h, w, 3) * 12
+    for _ in range(8):
+        y0, x0 = rng.randint(0, h - 40), rng.randint(0, w - 40)
+        img[y0:y0 + rng.randint(20, h // 3), x0:x0 + rng.randint(20, w // 3)] = \
+            rng.randint(0, 256, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def encode_ppm(rgb: np.ndarray) -> bytes:
+    return b"P6\n%d %d\n255\n" % (rgb.shape[1], rgb.shape[0]) + rgb.tobytes()
+
+
+def timed_decode_ms(data: bytes, dev: torch.device) -> list:
+    out = []
+    for _ in range(DECODE_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        image_decode.decode_image_bgr(data, dev)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out[1:]
+
+
+def phase_images(dev: torch.device) -> None:
+    """nvjpeg on the card against PIL's pixels (the fixtures' .npy), PNG and
+    PPM exact on the card, and the decode times of a 480 x 640 image."""
+    rows, failed = {}, []
+    for name, bound in NVJPEG_BOUNDS.items():
+        got = image_decode.decode_image_bgr((FIXTURES / f"{name}.jpg").read_bytes(), dev)
+        want = np.load(FIXTURES / f"{name}.npy")[:, :, ::-1].astype(np.float32)
+        diff = np.abs(got.cpu().numpy() - want)
+        rows[name] = {"shape": list(got.shape), "subsampling": bound["subsampling"],
+                      "mean_abs_diff": float(diff.mean()), "max_abs_diff": float(diff.max()),
+                      "identical_share": float((diff == 0).mean()), "bound": bound["bound"]}
+        if not (diff.mean() <= bound["bound"]["mean"] and diff.max() <= bound["bound"]["max"]):
+            failed.append(name)
+    photo = np.load(FIXTURES / "photo_a.npy")
+    png, ppm = (FIXTURES / "photo_a.png").read_bytes(), encode_ppm(photo)
+    exact = {fmt: bool(np.array_equal(image_decode.decode_image_bgr(data, dev).cpu().numpy(),
+                                      photo[:, :, ::-1].astype(np.float32)))
+             for fmt, data in (("png", png), ("ppm", ppm))}
+    jpeg = (FIXTURES / "photo_a.jpg").read_bytes()
+    ms = {fmt: timed_decode_ms(data, dev) for fmt, data in (("jpeg", jpeg), ("png", png),
+                                                            ("ppm", ppm))}
+    img = image_decode.decode_image_bgr(jpeg, dev)
+    prep = []
+    for _ in range(DECODE_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prepare_image(img, 600, 1000)
+        torch.cuda.synchronize()
+        prep.append(1e3 * (time.perf_counter() - t0))
+    emit({"phase": "images", "decoder": "nvjpeg (libnvjpeg, CUDA toolkit)", "jpeg": rows,
+          "png_ppm_exact_on_card": exact,
+          "decode_ms_480x640": {k: {"median": float(np.median(v)), "range": [min(v), max(v)]}
+                                for k, v in ms.items()},
+          "prepare_ms_480x640_to_600x800": float(np.median(prep[1:]))})
+    if failed or not all(exact.values()):
+        fail(f"images: nvjpeg outside its bound on {failed}, exact {exact}")
+
+
+def whitelisted_attributes() -> list:
+    """Whitelisted COCO-Attributes names whose inventory index is below 98
+    (so that their GT packing stays inside the attribute head)."""
+    names = list(attrib_selection)
+    return [n for i, n in enumerate(names) if attrib_selection[n] and i < 98]
+
+
+def write_extract_world(root: Path) -> tuple:
+    """The extract CLI's inputs: 32 images of 480 x 640 (30 JPEGs, the two
+    photo fixtures in turn, then PIL's PNG of photo_a and a PPM of a seeded
+    picture), an instances JSON of
+    80 categories with 3 boxes an image, and a COCO-Attributes index whose
+    reader keeps 98 attributes. Returns (instances, image root, attribs)."""
+    (root / "images").mkdir(parents=True)
+    rng = np.random.RandomState(11)
+    inventory = list(attrib_selection)
+    pos = {n: i for i, n in enumerate(inventory)}
+    white = whitelisted_attributes()
+    common, rare = white[:COMMON_ATTS], white[COMMON_ATTS:COMMON_ATTS + RARE_ATTS]
+    images, anns = [], []
+    tables = {k: {} for k in ("attrib_inst2attrib_vector", "attrib_inst2obj_inst",
+                              "obj_inst2attrib_inst", "obj_inst2image", "image2obj_insts",
+                              "obj_inst2obj_id")}
+    for k in range(EXTRACT_IMAGES):
+        iid = 1000 + k
+        if k < EXTRACT_IMAGES - 2:
+            name = f"{iid}.jpg"
+            shutil.copy(FIXTURES / ("photo_a.jpg", "photo_b.jpg")[k % 2], root / "images" / name)
+        elif k == EXTRACT_IMAGES - 2:
+            name = f"{iid}.png"
+            shutil.copy(FIXTURES / "photo_a.png", root / "images" / name)
+        else:
+            name = f"{iid}.ppm"
+            (root / "images" / name).write_bytes(encode_ppm(picture(480, 640, k)))
+        images.append({"id": iid, "file_name": name, "width": 640, "height": 480})
+        for j in range(3):
+            oi = len(anns) + 1
+            x, y = rng.uniform(0, 320), rng.uniform(0, 240)
+            w, h = rng.uniform(120, 640 - x), rng.uniform(100, 480 - y)
+            cat = int(rng.randint(1, 81))
+            anns.append({"id": oi, "image_id": iid, "bbox": [x, y, w, h], "area": w * h,
+                         "iscrowd": 0, "category_id": cat})
+            vec = np.zeros((len(inventory),), np.float32)
+            for a in common + ([rare[k]] if j == 0 and k < len(rare) else []):
+                vec[pos[a]] = 0.6
+            tables["obj_inst2image"][oi] = iid
+            tables["image2obj_insts"].setdefault(iid, []).append(oi)
+            tables["obj_inst2obj_id"][oi] = cat
+            tables["attrib_inst2attrib_vector"][oi] = vec
+            tables["attrib_inst2obj_inst"][oi] = oi
+            tables["obj_inst2attrib_inst"][oi] = oi
+    tables["attrib2string"] = dict(enumerate(inventory))
+    tables["obj_id2obj_name"] = {i: f"c{i}" for i in range(1, 81)}
+    (root / "attribs").mkdir()
+    for key, value in tables.items():
+        with open(root / "attribs" / f"{key}.pkl", "wb") as f:
+            pickle.dump(value, f)
+    inst = {"images": images, "annotations": anns,
+            "categories": [{"id": i, "name": f"c{i}"} for i in range(1, 81)]}
+    (root / "instances.json").write_text(json.dumps(inst))
+    return str(root / "instances.json"), str(root / "images"), str(root / "attribs")
+
+
+def phase_extract_cli(dev: torch.device) -> dict:
+    """The extract CLI (``python -m style_seqcvae_tpu_torch.scripts.extract_features``)
+    over 32 images at config 5's detector, its weights seeded and passed as
+    a .npz; features.h5 read back with FeaturesReader; then the inference
+    CLI on that features.h5 through kernel A. Returns the launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        inst, image_root, attribs = write_extract_world(root / "world")
+        cfg = DetectorConfig(num_classes=DET_CLASSES, num_att_classes=DET_ATTS, depth=DET_DEPTH)
+        t0 = time.perf_counter()
+        save_params_npz(to_jax_detector_params(init_detector(cfg, seed=3, device=dev)),
+                        str(root / "det.npz"))
+        npz_s = time.perf_counter() - t0
+        reset_kernel_counts()
+        nms.launches_by_shape.clear()
+        stats, out = {}, root / "features.h5"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = extract_cli.main([
+                "--instances-json", inst, "--image-root", image_root, "--attribs-dir", attribs,
+                "--checkpoint-path", str(root / "det.npz"), "--output", str(out),
+                "--detections-output", str(root / "dets.json"),
+                "--canvas", *map(str, EXTRACT_CANVAS), "--batch-size", str(EXTRACT_BATCH),
+                "--depth", str(DET_DEPTH), "--thresh", str(EXTRACT_THRESH)], stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        by_shape = dict(nms.launches_by_shape)
+        reader = FeaturesReader(str(out))
+        rows = [reader[iid] for iid in sorted(reader.image_ids)]
+        finite = all(np.isfinite(f).all() for f, _ in rows)
+        dets = json.loads((root / "dets.json").read_text())
+        loop = wall - stats["setup_s"]
+        batches = stats["batches"]
+        expected = {"vocab_topk_lse": 0, "topk_lse": 0, "roi_align": batches, "nms": batches}
+        emit({"phase": "extract_cli", "rc": rc, "images": stats["images"],
+              "skipped": stats["skipped"], "batches": batches, "batch": EXTRACT_BATCH,
+              "canvas": list(EXTRACT_CANVAS), "thresh": EXTRACT_THRESH,
+              "detector": {"depth": DET_DEPTH, "classes": DET_CLASSES, "attributes": DET_ATTS},
+              "npz_write_s": npz_s, "wall_s": wall, "setup_s": stats["setup_s"],
+              "loop_s": loop, "images_per_s": stats["images"] / wall,
+              "loop_images_per_s": stats["images"] / loop,
+              "seconds": {k: stats[k] for k in ("decode_prepare_s", "forward_s", "post_s",
+                                                "write_s")},
+              "host_share_of_loop": (stats["decode_prepare_s"] + stats["post_s"]
+                                     + stats["write_s"]) / loop,
+              "detections_per_image": stats["detections"],
+              "detections_json": len(dets), "rows_read_back": len(rows),
+              "boxes_per_row": [int(f.shape[0]) for f, _ in rows], "finite": finite,
+              "launches": counts, "nms_by_shape": {str(k): v for k, v in by_shape.items()},
+              "expected_launches": expected,
+              "note": "the per-class NMS of the host selection is nms_reference in numpy, as "
+                      "the JAX CLI's; kernel D runs once a batch, in the proposal layer"})
+        if rc != 0 or stats["skipped"] or len(rows) != EXTRACT_IMAGES or not finite:
+            fail(f"extract_cli: rc {rc}, {stats['skipped']} skipped, {len(rows)} rows, "
+                 f"finite {finite}")
+        if not any(stats["detections"]) or not dets:
+            fail("extract_cli: no detections at the stated threshold")
+        if counts != expected:
+            fail(f"extract_cli launch counts {counts}, expected {expected}")
+        launches = {"roi_align": counts["roi_align"], "nms_rpn": counts["nms"]}
+
+        # the inference CLI on the extracted features.h5 (kernel A)
+        cfg_path = write_cli_world(root / "infer", vocab_size=V, images=1, boxes=1, steps=STEPS,
+                                   model=PUBLISHED_MODEL, seed=0)
+        reset_kernel_counts()
+        stats = {}
+        t0 = time.perf_counter()
+        preds = root / "preds.json"
+        rc = cli.main(["--config", str(cfg_path), "--output-path", str(preds), "--bf16",
+                       "--batch-images", str(CLI_GROUP), "--config-override",
+                       "DATA.INFER_FEATURES", str(out)], stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        captions = json.loads(preds.read_text())
+        groups = -(-EXTRACT_IMAGES // CLI_GROUP)
+        expected = {"vocab_topk_lse": (STEPS - 1) * groups, "topk_lse": 0, "roi_align": 0,
+                    "nms": 0}
+        emit({"phase": "extract_cli_inference", "rc": rc, "predictions": len(captions),
+              "wall_s": wall, "captions_per_s": len(captions) / wall,
+              "fallbacks": stats["fallbacks"], "launches": counts,
+              "expected_launches": expected})
+        if rc != 0 or len(captions) != EXTRACT_IMAGES * N_Z or stats["fallbacks"]:
+            fail(f"extract_cli_inference: rc {rc}, {len(captions)} predictions, "
+                 f"{stats['fallbacks']} fallbacks")
+        if counts != expected:
+            fail(f"extract_cli_inference launch counts {counts}, expected {expected}")
+        launches["vocab_topk_lse"] = counts["vocab_topk_lse"]
+    return launches
+
+
+def serve_table(vocab_size: int, seed: int) -> AttributeWordformTable:
+    """bench.py:775-791's seeded wordform table: 98 attributes, 5 random
+    tokens each, all selectable."""
+    rng = np.random.RandomState(seed)
+    return AttributeWordformTable(tokens=rng.randint(2, vocab_size, (DET_ATTS, 5)).astype(np.int32),
+                                  valid=np.ones((DET_ATTS, 5), bool),
+                                  selectable=np.ones((DET_ATTS,), bool),
+                                  canonical=np.arange(DET_ATTS, dtype=np.int32))
+
+
+def phase_serve_agree(dev: torch.device) -> None:
+    """A small f32 serve: the card's detector outputs copied to the CPU, then
+    the constraints, tables and decode on both sides from them."""
+    det_cfg = DetectorConfig(num_classes=DET_CLASSES, num_att_classes=DET_ATTS, depth=50)
+    cap_cfg = decode_cfg(vocab_size=700, image_feature_size=F, embedding_size=300,
+                         hidden_size=48, attention_projection_size=32, z_space=16,
+                         max_caption_length=10)
+    det = init_detector(det_cfg, seed=5, device="cpu")
+    cap = init_captioner(cap_cfg, seed=6, device="cpu")
+    table = serve_table(cap_cfg.vocab_size, 12)
+    kw = dict(n_z=4, beam_size=BEAM, max_boxes=20, rpn_pre_nms_top_n=1000,
+              rpn_post_nms_top_n=100, dtype=torch.float32)
+    s_gpu = make_serve_fn(det_cfg, cap_cfg, table, device=dev, **kw)
+    s_cpu = make_serve_fn(det_cfg, cap_cfg, table, device="cpu", **kw)
+    gen = torch.Generator().manual_seed(13)
+    images = torch.rand((4, 224, 320, 3), generator=gen) * 255 - 120
+    info = torch.tensor([[224.0, 320.0, 1.0]] * 4)
+    sel = s_gpu.detect(to_device(det, dev), images.to(dev), info.to(dev))
+    sel_cpu = {k: v.cpu() for k, v in sel.items()}
+    gumbel = draw_gumbel((4, 4, N_CONSTRAINTS, DET_ATTS), gen)
+    ids_g, n_g, tables_g = s_gpu.constrain(sel, gumbel.to(dev))
+    ids_c, n_c, tables_c = s_cpu.constrain(sel_cpu, gumbel)
+    tables_equal = all(torch.equal(a.cpu(), b) for a, b in zip(tables_g, tables_c)) and \
+        torch.equal(ids_g.cpu(), ids_c) and torch.equal(n_g.cpu(), n_c)
+    noise = torch.randn((4, 10, 4, 2 ** N_CONSTRAINTS, BEAM, 16), generator=gen)
+    sentiment = torch.tensor([[1.0], [-1.0], [1.0], [-1.0]])
+    best_g, lp_g = s_gpu.caption(to_device(cap, dev), sel, sentiment.to(dev), tables_g, n_g,
+                                 noise.to(dev))
+    best_c, lp_c = s_cpu.caption(cap, sel_cpu, sentiment, tables_c, n_c, noise)
+    same = (best_g.cpu() == best_c).all(dim=-1).float().mean().item()
+    lp_rel = ((lp_g.cpu() - lp_c).abs() / lp_c.abs().clamp(min=1e-30)).max().item()
+    emit({"phase": "serve_agree", "dtype": "float32", "detections_per_image":
+          sel["valid"].sum(dim=1).tolist(), "num_constraints": n_c.tolist(),
+          "tables_identical": tables_equal, "identical_captions": same,
+          "lp_max_rel_diff": lp_rel, "lp_rtol": SERVE_AGREE_LP_RTOL})
+    if not tables_equal or same != 1.0 or not lp_rel <= SERVE_AGREE_LP_RTOL:
+        fail(f"serve_agree: tables {tables_equal}, identical {same}, lp rel {lp_rel}")
+
+
+def phase_serve(dev: torch.device, det_state, decode_state) -> dict:
+    """Serving at full width: one request (warm, median of 5), then groups
+    of 16, with the kernels' launches of one group. Returns the launches."""
+    det_cfg, det_params, images, im_info = det_state
+    harness = decode_state[0]
+    serve = make_serve_fn(det_cfg, harness.cfg, serve_table(V, 0), n_z=N_Z, beam_size=BEAM,
+                          max_boxes=BOXES, det_thresh=0.05, det_nms_thresh=TEST.nms_thresh,
+                          rpn_pre_nms_top_n=TEST.rpn_pre_nms_top_n,
+                          rpn_post_nms_top_n=TEST.rpn_post_nms_top_n,
+                          rpn_nms_thresh=TEST.rpn_nms_thresh, device=dev)
+    cap = harness.params
+    gen = torch.Generator(device=dev).manual_seed(21)
+    one = torch.rand((1,) + CANVAS + (3,), generator=gen, device=dev) * 255.0
+    one_info = torch.tensor([IM_INFO], device=dev)
+
+    def request(imgs, info, seed):
+        out = serve(det_params, cap, imgs, info, torch.ones((imgs.shape[0], 1), device=dev),
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        return out
+
+    request(one, one_info, 0)
+    one_ms = []
+    for i in range(SERVE_ONE_TIMED):
+        t0 = time.perf_counter()
+        request(one, one_info, 1 + i)
+        one_ms.append(1e3 * (time.perf_counter() - t0))
+    request(images, im_info, 10)
+    torch.cuda.reset_peak_memory_stats()
+    group_ms, counts = [], None
+    for i in range(SERVE_GROUP_TIMED):
+        reset_kernel_counts()
+        nms.launches_by_shape.clear()
+        t0 = time.perf_counter()
+        best, lp, num_given = request(images, im_info, 11 + i)
+        group_ms.append(1e3 * (time.perf_counter() - t0))
+        if counts is None:
+            counts = {**kernel_counts(),
+                      **{site: nms.launches_by_shape[call[:2]] for site, call in NMS_CALLS.items()}}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the stages of one group, synchronised one by one
+    stage_ms = {}
+    t0 = time.perf_counter()
+    sel = serve.detect(det_params, images, im_info)
+    torch.cuda.synchronize()
+    stage_ms["detect"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    _, n_given, tables = serve.constrain(sel, torch.Generator(device=dev).manual_seed(30))
+    torch.cuda.synchronize()
+    stage_ms["constrain"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    serve.caption(cap, sel, torch.ones((SERVE_GROUP, 1), device=dev), tables, n_given,
+                  torch.Generator(device=dev).manual_seed(31))
+    torch.cuda.synchronize()
+    stage_ms["caption"] = 1e3 * (time.perf_counter() - t0)
+    expected = {"vocab_topk_lse": STEPS - 1, "topk_lse": 0, "roi_align": 1, "nms": 2,
+                "nms_rpn": 1, "nms_per_class": 1}
+    distinct = [len({tuple(best[z, b].tolist()) for z in range(N_Z)}) for b in range(SERVE_GROUP)]
+    in_vocab = bool(((best >= 0) & (best < V)).all())
+    finite = bool(torch.isfinite(lp).all())
+    group_med = float(np.median(group_ms))
+    emit({"phase": "serve", "dtype": "bfloat16", "canvas": list(CANVAS), "n_z": N_Z,
+          "beam": BEAM, "boxes": BOXES, "attributes": DET_ATTS,
+          "one_request_ms": {"median": float(np.median(one_ms)), "range": [min(one_ms),
+                                                                          max(one_ms)]},
+          "group": SERVE_GROUP,
+          "group_ms": {"median": group_med, "range": [min(group_ms), max(group_ms)]},
+          "images_per_s": SERVE_GROUP / group_med * 1e3,
+          "captions_per_s": SERVE_GROUP * N_Z / group_med * 1e3,
+          "stage_ms": stage_ms, "launches_per_group": counts, "expected_launches": expected,
+          "num_constraints": num_given.tolist(), "distinct_captions_per_image": distinct,
+          "shape": list(best.shape), "in_vocab": in_vocab, "finite_scores": finite,
+          "peak_mem_gb": peak})
+    if list(best.shape) != [N_Z, SERVE_GROUP, STEPS] or not in_vocab or not finite:
+        fail("serve produced bad captions")
+    if counts != expected:
+        fail(f"serve launch counts {counts}, expected {expected}")
+    return {"vocab_topk_lse": counts["vocab_topk_lse"], "roi_align": counts["roi_align"],
+            "nms_rpn": counts["nms_rpn"], "nms_per_class": counts["nms_per_class"]}
+
+
+def live_in_group(pgid: int) -> list:
+    """The pids of the process group ``pgid`` that are alive (not zombies)."""
+    pids = []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if fields[0] != "Z" and int(fields[2]) == pgid:
+            pids.append(int(stat.parent.name))
+    return pids
+
+
+def phase_serve_http(dev: torch.device) -> None:
+    """The serve CLI's HTTP mode as a user starts it (a subprocess on the
+    card, config 5's detector and config 3's captioner, 98 attributes),
+    driven by load_test.py at two offered rates; any error fails."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        names = [f"w{i}" for i in range(DET_ATTS)]
+        cfg = write_cli_world(root / "world", vocab_size=V, images=1, boxes=1, steps=STEPS,
+                              model=PUBLISHED_MODEL, seed=0)
+        (root / "names.json").write_text(json.dumps(names))
+        (root / "forms.tsv").write_text("".join(f"{n}\t{n}\n" for n in names))
+        text = cfg.read_text().replace(
+            "    MAX_GIVEN_CONSTRAINTS: 3",
+            f"    WORDFORMS_ATTRIBS: {root / 'forms.tsv'}\n    MAX_GIVEN_CONSTRAINTS: 3")
+        cfg.write_text(text)
+        cmd = [sys.executable, "-m", "style_seqcvae_tpu_torch.scripts.serve", "--config",
+               str(cfg), "--attrib-names-json", str(root / "names.json"), "--http", "0",
+               "--canvas", *map(str, CANVAS), "--batch-requests", str(HTTP_BATCH)]
+        t0 = time.perf_counter()
+        # its own process group: the server and its decode workers
+        proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        lines, url = [], None
+        try:
+            while url is None:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                lines.append(line.rstrip())
+                found = re.search(r"serving on (http://127\.0\.0\.1:\d+)", line)
+                if found:
+                    url = found.group(1)
+                if time.perf_counter() - t0 > HTTP_START_TIMEOUT:
+                    break
+            start_s = time.perf_counter() - t0
+            if url is None:
+                fail(f"serve_http: the server did not start: {lines[-20:]}")
+            threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True).start()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rows = load_test.main(["--url", url, "--image", str(FIXTURES / "photo_a.jpg"),
+                                       "--rates", *map(str, HTTP_RATES), "--duration",
+                                       str(HTTP_DURATION)])
+                png_rows = load_test.main(["--url", url, "--image",
+                                           str(FIXTURES / "photo_a.png"), "--rates",
+                                           *map(str, HTTP_PNG_RATES), "--duration",
+                                           str(HTTP_DURATION)])
+        finally:
+            proc.terminate()                # SIGTERM: the server stops its workers and exits
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        deadline = time.perf_counter() + 10
+        while live_in_group(proc.pid):
+            if time.perf_counter() > deadline:
+                os.killpg(proc.pid, signal.SIGKILL)
+                fail(f"serve_http: the server left {live_in_group(proc.pid)} running")
+            time.sleep(0.1)
+        errors = sum(r["errors"] for r in rows + png_rows)
+        emit({"phase": "serve_http", "batch_requests": HTTP_BATCH, "canvas": list(CANVAS),
+              "image": "tests/fixtures/images/photo_a.jpg (480 x 640 JPEG, nvjpeg)",
+              "start_to_serving_s": start_s,
+              "server_lines": [ln for ln in lines if "warm-up" in ln or "serving on" in ln],
+              "rates": rows,
+              "png_image": "tests/fixtures/images/photo_a.png (PIL's PNG, decoded on the "
+                           "host by the server's worker processes)",
+              "png_rates": png_rows, "errors": errors})
+        if errors or len(rows) != len(HTTP_RATES) or len(png_rows) != len(HTTP_PNG_RATES):
+            fail(f"serve_http: {errors} errors; server said {lines[-20:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2097,6 +2626,17 @@ def main() -> int:
         phase_baseline_decode(dev)
         phase_baseline_train(dev)
         phase_baseline_cli(dev, root, cvae_preds)
+    # images, the extract CLI and serving after every earlier path, so that
+    # those run as before; their launches add to the kernels' counts (the
+    # HTTP server's are its own process's)
+    phase_images(dev)
+    new_launches = [phase_extract_cli(dev)]
+    phase_serve_agree(dev)
+    new_launches.append(phase_serve(dev, det_state, decode_state))
+    phase_serve_http(dev)
+    for counts in new_launches:
+        for name, n in counts.items():
+            launches[name] += n
 
     kernels = []
     for name, row in {**rows, **det_rows}.items():

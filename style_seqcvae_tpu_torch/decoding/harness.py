@@ -175,7 +175,8 @@ class DecodeHarness:
         or None; ``tables`` is per-z ``List[FSMTables]`` (B = 1), per-image
         ``List[List[FSMTables]]`` or an already padded (n_z, B, S[, E])
         FSMTables; num_constraints (B,), or fewer, whose first entry then
-        holds for every image. ``noise``: z-noise in the JAX layout (n_z,
+        holds for every image (a tensor stays where it lies, with no copy
+        to the host). ``noise``: z-noise in the JAX layout (n_z,
         max_steps, B, S, K, z), or a ``torch.Generator`` on the decode device
         that draws it.
 
@@ -204,8 +205,11 @@ class DecodeHarness:
             raise ValueError(f"tables are {tuple(fsm.default_dest.shape[:2])}, want ({n_z}, {B})")
         # (Z, B, ...) → image-major rows (B·Z, ...)
         fsm = FSMTables(*[t.transpose(0, 1).reshape((B * Z,) + tuple(t.shape[2:])) for t in fsm])
-        nc = np.asarray(num_constraints).reshape(-1)
-        nc = torch.as_tensor(np.repeat(nc[:1], B) if nc.size < B else nc[:B], device=dev)
+        if torch.is_tensor(num_constraints):          # stays on the device
+            nc = num_constraints.to(dev).reshape(-1)
+        else:
+            nc = torch.as_tensor(np.asarray(num_constraints).reshape(-1), device=dev)
+        nc = nc[:1].expand(B) if nc.numel() < B else nc[:B]
 
         prehead = selection == "prehead"
         grid_step = self._grid_step(feats, sentiment, obj_att_embeds, Z,

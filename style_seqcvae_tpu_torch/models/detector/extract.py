@@ -1,18 +1,26 @@
-"""Bottom-up feature extraction on the device: the detector → captioner
-bridge (counterpart of ``style_seqcvae_tpu/models/detector/extract.py``'s
-``decode_boxes_jax`` and ``select_detections_device``, and of the
+"""Bottom-up feature extraction: the detector → captioner bridge
+(counterpart of ``style_seqcvae_tpu/models/detector/extract.py`` and of the
 ``extract_feats`` chain of the JAX bench's end-to-end phase).
 
-Both functions are batched over images. The per-class NMS of every (image,
-class) pair runs as one batched call of kernel D on CUDA (its plain version
-on the CPU), so a forward launches kernel D twice: once in the proposal
-layer and once here.
+Two selections share the reference's algorithm (frcnn/test_net.py:379-482):
+
+* on the device, batched over images: :func:`decode_boxes` (also the host
+  path's box decode, on the forward's outputs) and
+  :func:`select_detections_device`. The per-class NMS of every (image,
+  class) pair runs as one batched call of kernel D on CUDA (its plain
+  version on the CPU), so a forward launches kernel D twice: once in the
+  proposal layer and once here;
+* on the host, one image at a time in numpy: :func:`select_detections`
+  and :func:`extraction_row`, the features.h5 writer's path, whose stream
+  order is part of the file's schema (class-major, every box tied at the
+  cap's score kept). It is the only path for ``class_agnostic`` detectors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -24,7 +32,9 @@ from style_seqcvae_tpu_torch.models.detector.faster_rcnn import (
 )
 from style_seqcvae_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
 from style_seqcvae_tpu_torch.ops.kernels import nms as nms_kernel
+from style_seqcvae_tpu_torch.ops.nms import nms_reference
 from style_seqcvae_tpu_torch.ops.topk import top_k
+from style_seqcvae_tpu_torch.utils.features_io import pack_obj_atts, pack_obj_atts_det
 
 _TEST = InferenceConfig()
 
@@ -44,6 +54,78 @@ def decode_boxes(rois_xyxy: torch.Tensor, bbox_pred: torch.Tensor, im_info: torc
     pred = bbox_transform_inv(rois_xyxy.float(), deltas)
     pred = clip_boxes(pred, im_info[:, 0, None, None], im_info[:, 1, None, None])
     return pred / im_scale[:, None, None]
+
+
+def select_detections(
+    scores: np.ndarray,                         # (P, C) softmax
+    pred_boxes: np.ndarray,                     # (P, 4C) or (P, 4) decoded, image scale
+    pooled_feat: np.ndarray,                    # (P, F)
+    scores_atts: Optional[np.ndarray] = None,   # (P, A) sigmoid
+    rois_label: Optional[np.ndarray] = None,    # (P,) GT class of each RoI
+    gt_atts: Optional[np.ndarray] = None,       # (P, A) GT multi-hot
+    *,
+    thresh: float = 0.5,
+    nms_thresh: float = 0.3,
+    max_per_image: int = 100,
+    class_agnostic: bool = False,
+    start_index: int = 1,
+) -> Dict[str, np.ndarray]:
+    """The host selection of one image (JAX ``:49-108``): per class, the
+    boxes scoring above ``thresh`` through greedy NMS (``nms_reference``),
+    then a global cap that keeps every box scoring at least the
+    ``max_per_image``-th highest score (ties kept). Returns arrays over the
+    selected boxes in class-major order: boxes, scores, class_ids,
+    features and, when their inputs are given, att_scores, gt_labels and
+    gt_att_rows."""
+    C = scores.shape[1]
+    per_class: List[Dict[str, np.ndarray]] = []
+    for j in range(start_index, C):
+        inds = np.where(scores[:, j] > thresh)[0]
+        if len(inds) == 0:
+            continue
+        cls_scores = scores[inds, j]
+        order = np.argsort(-cls_scores)
+        cls_boxes = pred_boxes[inds, :4] if class_agnostic else pred_boxes[inds, j * 4:(j + 1) * 4]
+        keep = nms_reference(cls_boxes[order], cls_scores[order], nms_thresh)
+        sel = inds[order][keep]
+        entry = {"boxes": cls_boxes[order][keep], "scores": cls_scores[order][keep],
+                 "class_ids": np.full(len(keep), j, np.int64), "features": pooled_feat[sel]}
+        if scores_atts is not None:
+            entry["att_scores"] = scores_atts[sel]
+        if rois_label is not None:
+            entry["gt_labels"] = np.asarray(rois_label)[sel]
+        if gt_atts is not None:
+            entry["gt_att_rows"] = np.asarray(gt_atts)[sel]
+        per_class.append(entry)
+
+    if not per_class:
+        return {k: np.zeros((0,)) for k in ("boxes", "scores", "class_ids", "features")}
+
+    all_scores = np.concatenate([e["scores"] for e in per_class])
+    if max_per_image > 0 and len(all_scores) > max_per_image:
+        image_thresh = np.sort(all_scores)[-max_per_image]
+        per_class = [{k: v[e["scores"] >= image_thresh] for k, v in e.items()}
+                     for e in per_class]
+    return {k: np.concatenate([e[k] for e in per_class], axis=0) for k in per_class[0]}
+
+
+def extraction_row(selected: Dict[str, np.ndarray], att_pred_thresh: float = 0.3
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The (features, obj_atts, obj_atts_det) row of features.h5 from one
+    image's :func:`select_detections` (JAX ``:187-203``): the packed GT
+    stream when any selected box has a GT label, and then the packed
+    detected-attribute stream at ``att_pred_thresh``."""
+    feats = np.asarray(selected.get("features", np.zeros((0, 0))), np.float32)
+    labelled = "gt_labels" in selected and np.asarray(selected["gt_labels"]).sum() > 0
+    obj_atts = np.zeros((0,), np.uint8)
+    if labelled:
+        att_lists = [np.nonzero(row)[0] for row in selected["gt_att_rows"]]
+        obj_atts = pack_obj_atts(np.asarray(selected["gt_labels"], np.int64), att_lists)
+    obj_atts_det = np.zeros((0,), np.float32)
+    if "att_scores" in selected and len(selected.get("class_ids", [])) > 0 and labelled:
+        obj_atts_det = pack_obj_atts_det(selected["class_ids"], selected["att_scores"],
+                                         att_pred_thresh)
+    return feats, obj_atts, obj_atts_det
 
 
 def select_detections_device(scores: torch.Tensor, pred_boxes: torch.Tensor,

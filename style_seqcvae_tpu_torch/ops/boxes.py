@@ -1,6 +1,6 @@
 """Box geometry of the detector's inference path (counterpart of
-``style_seqcvae_tpu/ops/boxes.py``: ``bbox_transform_inv`` and
-``clip_boxes``).
+``style_seqcvae_tpu/ops/boxes.py``: ``bbox_transform_inv``, ``clip_boxes``
+and ``bbox_overlaps``).
 
 Boxes are (x1, y1, x2, y2) inclusive, so a width is x2 - x1 + 1 (the legacy
 Faster R-CNN convention). Class-specific deltas and boxes keep the strided
@@ -52,3 +52,18 @@ def clip_boxes(boxes: torch.Tensor, im_h: Bound, im_w: Bound) -> torch.Tensor:
     x2 = clip(boxes[..., 2::4], im_w)
     y2 = clip(boxes[..., 3::4], im_h)
     return torch.stack([x1, y1, x2, y2], dim=-1).reshape(boxes.shape)
+
+
+def bbox_overlaps(boxes: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """IoU matrix (..., N, 4) × (..., M, 4) → (..., N, M), with +1 widths
+    (JAX ``bbox_overlaps`` and ``native.iou_matrix``)."""
+    area_q = ((query[..., :, 2] - query[..., :, 0] + 1.0)
+              * (query[..., :, 3] - query[..., :, 1] + 1.0))
+    area_b = ((boxes[..., :, 2] - boxes[..., :, 0] + 1.0)
+              * (boxes[..., :, 3] - boxes[..., :, 1] + 1.0))
+    lt = torch.maximum(boxes[..., :, None, :2], query[..., None, :, :2])
+    rb = torch.minimum(boxes[..., :, None, 2:4], query[..., None, :, 2:4])
+    wh = (rb - lt + 1.0).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area_b[..., :, None] + area_q[..., None, :] - inter
+    return inter / union

@@ -7,6 +7,11 @@ repository root. The sources expose a plain C interface: no PyTorch headers,
 so a build takes seconds. The library is written under a temporary name and
 moved into place with ``os.replace``, so a build that is cut leaves nothing
 that a later process would load.
+
+``csrc/nvjpeg_decode.cpp``, the binding of the toolkit's JPEG decoder, is
+built the same way into a library of its own,
+``build/torch_kernels/nvjpeg-<hash>/libssc_nvjpeg.so`` (:func:`build_nvjpeg`),
+so that a machine without libnvjpeg still builds kernels A-D.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libssc_kernels.so"
+NVJPEG_SOURCE = CSRC / "nvjpeg_decode.cpp"
+NVJPEG_LIB_NAME = "libssc_nvjpeg.so"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -42,8 +49,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
+    path = cuda_home() / "bin" / "nvcc"
     if not path.exists():
         raise KernelError("nvcc not found: put the CUDA toolkit on PATH or set CUDA_HOME")
     return str(path)
@@ -65,17 +71,11 @@ def library_path() -> Path:
     return BUILD_ROOT / source_hash() / LIB_NAME
 
 
-def build() -> Path:
-    """Compile and link the library unless it is already built; returns its
-    path. nvcc's messages (``-Xptxas -v``: registers, shared memory, spills)
-    are kept beside it in ``build.log``. Raises :class:`KernelError` with
-    nvcc's stderr on failure."""
-    out = library_path()
-    if out.exists():
-        return out
+def _compile(units: List[Path], out: Path, link_flags: List[str]) -> Path:
+    """nvcc on each of ``units`` (all started together), then one link into
+    ``out``; nvcc's messages go to ``build.log`` beside it."""
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    units = [p for p in _sources() if p.suffix == ".cu"]
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs, procs = [], []
         for src in units:
@@ -92,14 +92,55 @@ def build() -> Path:
                 failed.append(src.name)
         if failed:
             raise KernelError(f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(logs))
-        tmp_lib = Path(tmp) / LIB_NAME
+        tmp_lib = Path(tmp) / out.name
         link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
-                               *map(str, objs)], capture_output=True, text=True)
+                               *map(str, objs), *link_flags], capture_output=True, text=True)
         if link.returncode != 0:
             raise KernelError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         (out.parent / "build.log").write_text("\n".join(logs))
         os.replace(tmp_lib, out)
     return out
+
+
+def build() -> Path:
+    """Compile and link the kernels' library unless it is already built;
+    returns its path. nvcc's messages (``-Xptxas -v``: registers, shared
+    memory, spills) are kept beside it in ``build.log``. Raises
+    :class:`KernelError` with nvcc's stderr on failure."""
+    out = library_path()
+    if out.exists():
+        return out
+    return _compile([p for p in _sources() if p.suffix == ".cu"], out, [])
+
+
+def cuda_home() -> Path:
+    """The CUDA toolkit's root: ``CUDA_HOME``, ``CUDA_PATH``, the directory
+    above ``nvcc`` on ``PATH``, else ``/usr/local/cuda``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        return Path(home)
+    found = shutil.which("nvcc")
+    return Path(found).resolve().parents[1] if found else Path("/usr/local/cuda")
+
+
+def nvjpeg_available() -> bool:
+    """Whether the toolkit has nvjpeg's header and library."""
+    home = cuda_home()
+    libs = [d for d in (home / "lib64", home / "targets" / "x86_64-linux" / "lib") if d.is_dir()]
+    return (home / "include" / "nvjpeg.h").exists() and \
+        any(next(d.glob("libnvjpeg.so*"), None) for d in libs)
+
+
+def build_nvjpeg() -> Path:
+    """Compile and link ``csrc/nvjpeg_decode.cpp`` against libnvjpeg into
+    its own library unless it is already built; returns its path."""
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS).encode() + NVJPEG_SOURCE.read_bytes())
+    out = BUILD_ROOT / f"nvjpeg-{h.hexdigest()[:16]}" / NVJPEG_LIB_NAME
+    if out.exists():
+        return out
+    home = cuda_home()
+    rpath = f"{home / 'lib64'}:{home / 'targets' / 'x86_64-linux' / 'lib'}"
+    return _compile([NVJPEG_SOURCE], out, ["-lnvjpeg", "-Xlinker", f"-rpath,{rpath}"])
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -140,6 +181,32 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             _lib = _bind(ctypes.CDLL(str(build())))
         return _lib
+
+
+_nvjpeg_lib: Optional[ctypes.CDLL] = None
+
+
+def nvjpeg_library() -> ctypes.CDLL:
+    """The bound nvjpeg binding, built on first call in this process."""
+    global _nvjpeg_lib
+    with _lock:
+        if _nvjpeg_lib is None:
+            lib = ctypes.CDLL(str(build_nvjpeg()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            ip = ctypes.POINTER(ctypes.c_int)
+            # (data, length, components, subsampling, width, height)
+            lib.ssc_jpeg_info.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ip, ip, ip, ip]
+            lib.ssc_jpeg_info.restype = i
+            # (data, length, out, pitch, stream)
+            lib.ssc_jpeg_decode_bgri.argtypes = [ctypes.c_char_p, ctypes.c_size_t, p, i, p]
+            lib.ssc_jpeg_decode_bgri.restype = i
+            lib.ssc_jpeg_status_kind.argtypes = [i]
+            lib.ssc_jpeg_status_kind.restype = i
+            for name in ("ssc_jpeg_status_name", "ssc_jpeg_subsampling_name"):
+                getattr(lib, name).argtypes = [i]
+                getattr(lib, name).restype = ctypes.c_char_p
+            _nvjpeg_lib = lib
+        return _nvjpeg_lib
 
 
 def check(lib: ctypes.CDLL, rc: int, name: str) -> None:

@@ -20,6 +20,8 @@ sides compute the same thing.
 
 from __future__ import annotations
 
+import os
+import zipfile
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -33,13 +35,16 @@ from style_seqcvae_tpu_torch.ops.lstm import LSTMCellParams
 
 
 def named_leaves(tree: Any) -> List[Tuple[str, Any]]:
-    """The leaves of a parameter tree (dicts and NamedTuples) with their
-    paths joined by ``/`` (``cell/attention_lstm/w``), in the tree's order."""
+    """The leaves of a parameter tree (dicts, NamedTuples and lists) with
+    their paths joined by ``/`` (``cell/attention_lstm/w``; a list's items
+    by their index, ``resnet/layer1/0/conv1``), in the tree's order."""
     out: List[Tuple[str, Any]] = []
 
     def walk(node: Any, prefix: str) -> None:
         if hasattr(node, "_asdict"):                        # a NamedTuple
             node = node._asdict()
+        elif isinstance(node, (list, tuple)):
+            node = {str(i): v for i, v in enumerate(node)}
         if isinstance(node, dict):
             for k, v in node.items():
                 if "/" in str(k) or not str(k):
@@ -53,12 +58,14 @@ def named_leaves(tree: Any) -> List[Tuple[str, Any]]:
 
 
 def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
-    """``tree`` (dicts and NamedTuples of tensors) with ``fn`` applied to
-    every leaf, its structure kept."""
+    """``tree`` (dicts, lists and NamedTuples of tensors) with ``fn`` applied
+    to every leaf, its structure kept."""
     if torch.is_tensor(tree):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return type(tree)(*[tree_map(fn, v) for v in tree])
 
 
@@ -81,7 +88,8 @@ def save_params_npz(tree: Any, path: str) -> None:
 
 def load_params_npz(path: str) -> Dict[str, Any]:
     """The nested dict of numpy arrays that :func:`save_params_npz` wrote,
-    as :func:`from_jax_params` takes it."""
+    as :func:`from_jax_params` and :func:`from_jax_detector_params` take
+    it; a dict keyed ``0`` .. ``n-1`` comes back as the list it was."""
     tree: Dict[str, Any] = {}
     with np.load(path, allow_pickle=False) as data:
         for key in data.files:
@@ -90,7 +98,16 @@ def load_params_npz(path: str) -> Dict[str, Any]:
             for p in parents:
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
-    return tree
+
+    def lists(node: Any) -> Any:
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and sorted(node) == sorted(map(str, range(len(node)))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
 
 
 def _field(node: Any, name: str) -> Any:
@@ -205,6 +222,52 @@ def from_jax_detector_params(tree: Dict[str, Any], *,
         return out
 
     return convert(tree)
+
+
+def to_jax_detector_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's detector params → nested dicts and lists of numpy arrays
+    in the JAX tree's layout (conv kernels OIHW → HWIO), the inverse of
+    :func:`from_jax_detector_params`: :func:`save_params_npz` writes them
+    as it writes the JAX tree."""
+
+    def conv(node: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        out = node.detach().cpu()
+        if out.dim() == 4:                                  # OIHW → HWIO
+            out = out.permute(2, 3, 1, 0)
+        return out.contiguous().numpy().copy()
+
+    return conv(params)
+
+
+def load_detector_params(path: str, *, depth: int = 101, num_anchors: int = 12,
+                         device: Optional[Union[str, torch.device]] = None,
+                         dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Detector params from a file: a ``.npz`` of the JAX detector tree
+    (:func:`save_params_npz` of ``jax.tree_util.tree_map(np.asarray,
+    params)``, or of :func:`to_jax_detector_params`), or a reference
+    PyTorch checkpoint (``.pth``, jwyang names, through
+    ``utils/torch_import.py::import_detector_state_dict`` at ``depth`` and
+    ``num_anchors``). A directory (an Orbax checkpoint of the JAX package)
+    is refused by name: the card's machine has no orbax."""
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a directory: Orbax detector checkpoints are not read by "
+                         "the port; pass a .npz of the detector tree or a reference .pth")
+    if zipfile.is_zipfile(path):
+        with zipfile.ZipFile(path) as z:
+            is_npz = all(n.endswith(".npy") for n in z.namelist())
+        if is_npz:
+            return from_jax_detector_params(load_params_npz(path), device=device, dtype=dtype)
+    from style_seqcvae_tpu_torch.utils.torch_import import (
+        import_detector_state_dict,
+        load_torch_checkpoint,
+    )
+
+    return import_detector_state_dict(load_torch_checkpoint(path), depth, num_anchors,
+                                      device=device, dtype=dtype)
 
 
 def to_device(params: Any, device: Union[str, torch.device]) -> Any:

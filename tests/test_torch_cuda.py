@@ -9,12 +9,15 @@ without the JAX-side test configuration:
 
 import json
 import random
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from style_seqcvae_tpu_torch.config import Config
+from style_seqcvae_tpu_torch.data import image_decode as idec
+from style_seqcvae_tpu_torch.data.detection import decode_image_bgr
 from style_seqcvae_tpu_torch.data.datasets import EvaluationDatasetWithConstraints
 from style_seqcvae_tpu_torch.data.vocabulary import (
     BOUNDARY_TOKEN,
@@ -26,12 +29,15 @@ from style_seqcvae_tpu_torch.decoding import beam_search as tbs
 from style_seqcvae_tpu_torch.decoding import cbs as tdense
 from style_seqcvae_tpu_torch.decoding import samplers as tsam
 from style_seqcvae_tpu_torch.decoding.cbs_fast import fsm_to_tables
+from style_seqcvae_tpu_torch.decoding.device_fsm import build_attribute_wordform_table, draw_gumbel
 from style_seqcvae_tpu_torch.decoding.fsm import pack_fsm
 from style_seqcvae_tpu_torch.decoding.harness import DecodeHarness, pad_tables_batch
 from style_seqcvae_tpu_torch.models import captioner as tcap
+from style_seqcvae_tpu_torch.models.detector.faster_rcnn import DetectorConfig, init_detector
 from style_seqcvae_tpu_torch.models.updown_cell import init_cell_state
 from style_seqcvae_tpu_torch.ops.kernels import nms, roi_align, topk_lse, vocab_topk_lse
 from style_seqcvae_tpu_torch.scripts import inference as cli
+from style_seqcvae_tpu_torch.serving import make_serve_fn
 from style_seqcvae_tpu_torch.utils.features_io import FeaturesWriter, pack_obj_atts
 from style_seqcvae_tpu_torch.weights import to_device
 
@@ -870,3 +876,78 @@ def test_baseline_train_step_gpu_matches_cpu(dev):
     for (path, c), (_, g) in zip(named_leaves(states[0].params), named_leaves(states[1].params)):
         err = ((g.detach().cpu() - c.detach()).norm() / c.detach().norm()).item()
         assert err <= TRAIN_PARAM_REL, f"{path}: off by {err:.3g}"
+
+
+# ----------------------------------------------------- images and serving
+
+IMAGE_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "images"
+# each JPEG fixture's subsampling and its own measured bound against PIL
+NVJPEG_BOUNDS = json.loads((IMAGE_FIXTURES / "nvjpeg_bounds.json").read_text())["fixtures"]
+
+
+@pytest.mark.cuda
+def test_nvjpeg_fixtures_against_pil(dev):
+    """nvjpeg on the card against PIL's decode of each fixture, within
+    its own bound (``tests/fixtures/images/nvjpeg_bounds.json``); PIL's PNG
+    of ``photo_a`` decodes to its pixels exactly and PPM on the card equals
+    the host's decode; a JPEG cut short is refused before the card sees it."""
+    for name, bound in NVJPEG_BOUNDS.items():
+        data = (IMAGE_FIXTURES / f"{name}.jpg").read_bytes()
+        got = decode_image_bgr(data, dev)
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        want = np.load(IMAGE_FIXTURES / f"{name}.npy")[:, :, ::-1].astype(np.float32)
+        diff = np.abs(got.cpu().numpy() - want)
+        assert diff.mean() <= bound["bound"]["mean"] and diff.max() <= bound["bound"]["max"], \
+            (name, diff.mean(), diff.max())
+    with pytest.raises(idec.ImageDecodeError, match="cut short"):
+        decode_image_bgr(data[:len(data) // 2], dev)
+    rgb = (np.arange(5 * 7 * 3) % 251).astype(np.uint8).reshape(5, 7, 3)
+    ppm = b"P6\n7 5\n255\n" + rgb.tobytes()
+    np.testing.assert_array_equal(decode_image_bgr(ppm, dev).cpu().numpy(),
+                                  decode_image_bgr(ppm, "cpu").numpy())
+    png = decode_image_bgr((IMAGE_FIXTURES / "photo_a.png").read_bytes(), dev)
+    np.testing.assert_array_equal(png.cpu().numpy(),
+                                  np.load(IMAGE_FIXTURES / "photo_a.npy")[:, :, ::-1])
+
+
+@pytest.mark.cuda
+def test_serve_gpu_matches_cpu_from_shared_detections(dev):
+    """The serve chain after the detector, on the card against the CPU from
+    the card's own detector outputs, f32: equal tables and constraint
+    counts, token-identical captions (kernel A against its plain version),
+    log-probs within 1e-5."""
+    names = ["wooden", "red", "blue", "furry", "plastic", "shiny", "tall"]
+    vocab = Vocabulary([UNK_TOKEN, BOUNDARY_TOKEN] + names + [f"w{i}" for i in range(40)])
+    table = build_attribute_wordform_table(names, {n: [n] for n in names}, vocab)
+    det_cfg = DetectorConfig(num_classes=5, num_att_classes=len(names), depth=50,
+                             anchor_scales=(2, 4))
+    cap_cfg = tcap.CaptionerConfig(vocab_size=vocab.get_vocab_size(), image_feature_size=2048,
+                                   embedding_size=300, hidden_size=16,
+                                   attention_projection_size=8, z_space=4, sentiment_vae=1,
+                                   simple_vae=False, max_caption_length=8, beam_size=3)
+    det_cpu = init_detector(det_cfg, seed=0, device="cpu")
+    cap_cpu = tcap.init_captioner(cap_cfg, seed=1, device="cpu")
+    kw = dict(n_z=3, beam_size=3, max_boxes=10, rpn_pre_nms_top_n=200, rpn_post_nms_top_n=30,
+              dtype=torch.float32)
+    serve_gpu = make_serve_fn(det_cfg, cap_cfg, table, device=dev, **kw)
+    serve_cpu = make_serve_fn(det_cfg, cap_cfg, table, device="cpu", **kw)
+    gen = torch.Generator().manual_seed(0)
+    images = torch.rand((2, 96, 128, 3), generator=gen) * 255 - 120
+    info = torch.tensor([[96.0, 128.0, 1.0], [90.0, 120.0, 1.0]])
+    sel = serve_gpu.detect(to_device(det_cpu, dev), images.to(dev), info.to(dev))
+    sel_cpu = {k: v.cpu() for k, v in sel.items()}
+    gumbel = draw_gumbel((3, 2, 3, len(names)), gen)
+    ids_g, n_g, tables_g = serve_gpu.constrain(sel, gumbel.to(dev))
+    ids_c, n_c, tables_c = serve_cpu.constrain(sel_cpu, gumbel)
+    assert torch.equal(ids_g.cpu(), ids_c) and torch.equal(n_g.cpu(), n_c) and (n_c > 0).all()
+    for a, b in zip(tables_g, tables_c):
+        assert torch.equal(a.cpu(), b)
+    noise = torch.randn((3, 8, 2, 8, 3, 4), generator=gen)
+    sentiment = torch.tensor([[1.0], [-1.0]])
+    launches = vocab_topk_lse.launches
+    best_g, lp_g = serve_gpu.caption(to_device(cap_cpu, dev), sel, sentiment.to(dev), tables_g,
+                                     n_g, noise.to(dev))
+    assert vocab_topk_lse.launches - launches == 7
+    best_c, lp_c = serve_cpu.caption(cap_cpu, sel_cpu, sentiment, tables_c, n_c, noise)
+    assert torch.equal(best_g.cpu(), best_c)
+    torch.testing.assert_close(lp_g.cpu(), lp_c, rtol=1e-5, atol=0)

@@ -55,7 +55,8 @@ def test_port_imports_no_jax():
                  "utils.features_io", "scripts.inference", "scripts.train",
                  "training.optimizer", "training.trainer", "training.checkpointing",
                  "utils.logging", "utils.torch_import", "models.baseline", "evaluation.eval",
-                 "scripts.eval"):
+                 "scripts.eval", "data.image_decode", "data.detection", "decoding.device_fsm",
+                 "serving", "scripts.extract_features", "scripts.serve", "scripts.load_test"):
         assert "style_seqcvae_tpu_torch." + name in modules
     code = "\n".join([
         "import sys",
@@ -64,11 +65,12 @@ def test_port_imports_no_jax():
         "sys.modules['style_seqcvae_tpu'] = None",
         "sys.modules['yaml'] = None",
         "sys.modules['h5py'] = None",
+        "sys.modules['PIL'] = None",
         "import importlib",
         f"for name in {modules!r}: importlib.import_module(name)",
         "import chip_smoke",
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'style_seqcvae_tpu.'))"
-        " for m, v in sys.modules.items() if v is not None)",
+        "assert not any(m in ('jax', 'PIL') or m.startswith(('jax.', 'PIL.', "
+        "'style_seqcvae_tpu.')) for m, v in sys.modules.items() if v is not None)",
         "print('ok')",
     ])
     res = _run(code, ROOT)
@@ -165,6 +167,37 @@ def test_detector_entry_points_refuse_cpu_fallback():
         extract_device_features(params, cfg, images, im_info)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_jax_detector_params({"resnet": {"conv1": np.zeros((7, 7, 3, 64), np.float32)}})
+
+
+def test_image_and_serving_entry_points_refuse_cpu_fallback(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from style_seqcvae_tpu_torch.data.detection import decode_image_bgr, load_image_bgr
+    from style_seqcvae_tpu_torch.decoding.device_fsm import AttributeWordformTable
+    from style_seqcvae_tpu_torch.scripts import extract_features as extract_cli
+    from style_seqcvae_tpu_torch.scripts import serve as serve_cli
+    from style_seqcvae_tpu_torch.serving import make_serve_fn
+
+    ppm = b"P6 1 1 255\n\x00\x00\x00"
+    (tmp_path / "a.ppm").write_bytes(ppm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_image_bgr(ppm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_image_bgr(str(tmp_path / "a.ppm"))
+    assert decode_image_bgr(ppm, "cpu").device.type == "cpu"
+    table = AttributeWordformTable(*(np.zeros((1, 5), np.int32), np.zeros((1, 5), bool),
+                                     np.zeros((1,), bool), np.zeros((1,), np.int32)))
+    cap_cfg = CaptionerConfig(vocab_size=10, embedding_size=300)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_serve_fn(DetectorConfig(), cap_cfg, table)
+    (tmp_path / "inst.json").write_text('{"images": [], "annotations": [], "categories": []}')
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_cli.main(["--instances-json", str(tmp_path / "inst.json"),
+                          "--output", str(tmp_path / "f.h5")])
+    assert not (tmp_path / "f.h5").exists()
+    config = str(ROOT / "configs" / "style_seqcvae_senticap.yml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_cli.main(["--config", config, "--image", str(tmp_path / "a.ppm")])
 
 
 def test_chip_smoke_fails_without_gpu():
