@@ -151,6 +151,26 @@ one JSON line per phase as it goes:
    and its PNG at 4 requests/s (decoded on the host by the server's
    worker processes), 10 s each: p50, p95 and p99 ms, throughput, errors (any
    fails); the server is stopped after;
+25. ``kernel`` rows for detector training, at (4, 40, 64, 1024) with 512
+   RoIs laid out as ``proposal_target`` yields them, f32 and bf16:
+   ``roi_align_train``, kernel C against its plain version, and
+   ``roi_align_backward`` (the hand-written backward of RoIAlign) against
+   autograd of the plain RoIAlign (error relative to the largest gradient);
+   and ``nms_rpn_train``, kernel D at the RPN's
+   training call (4 x 12,000, 0.7, 2,000 kept), 0 mismatches;
+26. ``detector_train``: the training step at full width (ResNet-101, 81
+   classes, 196 attributes, 4 images on 640 x 1024, 12,000 / 2,000
+   proposals, 128 RoIs an image), 8 steps in f32 (TF32 off) then 8 in bf16
+   compute: ms a step (median of the last 5), images/s, peak memory, the
+   first and last total loss, and the launches a step of C, its backward
+   and D (one each);
+27. ``train_detector_cli``: the train CLI on 8 of the JPEG fixtures
+   (ResNet-101, 2 images a step, one epoch), the extract CLI from its
+   checkpoint with ``--detections-output``, then ``eval_detections``:
+   step ms, mAP, AP50 (near zero after 4 steps: nothing is claimed);
+28. ``detector_variants``: VGG16 (no attribute head) with ``align``,
+   ``pool`` and ``crop``: one inference forward on 2 images at config 5's
+   608 x 928 and 2 training steps: ms and peak memory;
 
 then the ``{"kernels": [...]}`` summary, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -231,14 +251,23 @@ from style_seqcvae_tpu_torch.models.detector.rpn import (
     proposal_nms,
     rpn_heads,
 )
-from style_seqcvae_tpu_torch.ops.kernels import _build, nms, roi_align, topk_lse, vocab_topk_lse
+from style_seqcvae_tpu_torch.ops.kernels import (
+    _build,
+    nms,
+    roi_align,
+    topk_lse,
+    vocab_topk_lse,
+)
 from style_seqcvae_tpu_torch.scripts import eval as eval_cli
+from style_seqcvae_tpu_torch.scripts import eval_detections as eval_detections_cli
 from style_seqcvae_tpu_torch.scripts import extract_features as extract_cli
 from style_seqcvae_tpu_torch.scripts import inference as cli
 from style_seqcvae_tpu_torch.scripts import load_test
 from style_seqcvae_tpu_torch.scripts import train as train_cli
+from style_seqcvae_tpu_torch.scripts import train_detector as train_detector_cli
 from style_seqcvae_tpu_torch.serving import make_serve_fn
 from style_seqcvae_tpu_torch.training.checkpointing import read_checkpoint
+from style_seqcvae_tpu_torch.training.detector_optimizer import DetectorSGD
 from style_seqcvae_tpu_torch.training.trainer import (
     create_train_state,
     make_baseline_train_step,
@@ -356,6 +385,11 @@ SOURCES = {
                   "style_seqcvae_tpu/ops/pallas/roi_align.py:92"),
     **{site: ("style_seqcvae_tpu_torch/csrc/nms.cu", "style_seqcvae_tpu/ops/pallas/nms.py:58")
        for site in NMS_CALLS},
+    # no TPU kernel: the VJP of JAX's XLA gather RoIAlign, which its
+    # detector training differentiates (faster_rcnn.py:143)
+    "roi_align_backward": ("style_seqcvae_tpu_torch/csrc/roi_align.cu",
+                           "style_seqcvae_tpu/ops/roi_align.py:51 (VJP of the XLA gather, "
+                           "reached from style_seqcvae_tpu/models/detector/faster_rcnn.py:143)"),
 }
 
 KERNELS = {"vocab_topk_lse": vocab_topk_lse, "topk_lse": topk_lse, "roi_align": roi_align,
@@ -1629,10 +1663,11 @@ def median_range(ms: list) -> tuple:
     return s[len(s) // 2], [s[0], s[-1]]
 
 
-def profile_steps(fn, n: int) -> dict:
+def profile_steps(fn, n: int, top: int = 0) -> dict:
     """``n`` calls of ``fn`` under ``torch.profiler``: the card's kernel and
     copy time a call, their count and the host's kernel-launch calls (None
-    where the trace holds no device events)."""
+    where the trace holds no device events); with ``top``, the ``top``
+    device events by total time, ms a call."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1644,8 +1679,15 @@ def profile_steps(fn, n: int) -> dict:
     if not evs:
         return {"device_ms_per_step": None, "device_ops_per_step": None,
                 "kernel_launch_calls_per_step": None}
-    return {"device_ms_per_step": sum(e.time_range.elapsed_us() for e in evs) / 1e3 / n,
-            "device_ops_per_step": len(evs) / n, "kernel_launch_calls_per_step": launches / n}
+    out = {"device_ms_per_step": sum(e.time_range.elapsed_us() for e in evs) / 1e3 / n,
+           "device_ops_per_step": len(evs) / n, "kernel_launch_calls_per_step": launches / n}
+    if top:
+        by_name: dict = {}
+        for e in evs:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+        out["top_device_ms_per_step"] = {k[:90]: v for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:top]}
+    return out
 
 
 def train_row(cfg, params, batch_size: int, dtype, dev, overrides, chained=True,
@@ -2581,6 +2623,381 @@ def phase_serve_http(dev: torch.device) -> None:
             fail(f"serve_http: {errors} errors; server said {lines[-20:]}")
 
 
+# detector training (scripts/train_detector.py at the reference's res101
+# run): ResNet-101 C4, 81 classes, 196 attributes, 4 images a step on the
+# 640 x 1024 canvas (600 x 1000 images: scale 600, max 1,000), 12,000
+# candidates into the RPN's NMS and 2,000 out, 128 RoIs an image
+DT_BATCH, DT_CANVAS, DT_IMAGE = 4, (640, 1024), (600, 1000)
+DT_CLASSES, DT_ATTS, DT_GT = 81, 196, 8
+DT_PRE, DT_POST, DT_THRESH, DT_ROIS = 12000, 2000, 0.7, 128
+DT_C4 = (DT_BATCH, 40, 64, 1024)
+DT_STEPS, DT_TIMED = 8, 5
+# the RoIAlign backward adds with f32 atomics in an order that changes from
+# run to run and merges a bin's samples per pixel before weighting: a few
+# ulps of the largest gradient from autograd of the plain version; in bf16
+# both round their f32 sums once (one bf16 ulp, 2^-8 of the largest)
+ROI_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# f32 operations per grad_out element: 16 corner products and atomic adds
+# at S = 2, and the 1 / S^2 scale
+ROI_BWD_OPS_PER_GRAD = 33
+# the train CLI on the JPEG fixtures: 8 images of 480 x 640, 2 a step, one
+# epoch; then the extract CLI from its checkpoint at --thresh 0 (4 steps
+# leave every class below extract_cli's 0.013, so that eval_detections
+# scores every detection) and eval_detections
+DT_CLI_IMAGES, DT_CLI_IMS = 8, 2
+# the VGG16 variants: config 5's canvas, 2 images, 2 training steps each
+VARIANT_BATCH, VARIANT_TRAIN_STEPS = 2, 2
+
+
+def train_detector_cfg(backbone: str = "resnet", pooling_mode: str = "align",
+                       num_att_classes: int = DT_ATTS) -> DetectorConfig:
+    """The train CLI's DetectorConfig from the DET defaults (12,000 / 2,000
+    / 0.7, 128 RoIs) at 81 classes."""
+    D = Config().DET
+    cfg = train_detector_cli.detector_config(D, DT_CLASSES, num_att_classes, DET_DEPTH, False)
+    return cfg._replace(backbone=backbone, pooling_mode=pooling_mode)
+
+
+def train_detector_batch(dev: torch.device, batch: int, canvas, image, n_atts: int,
+                         seed: int) -> dict:
+    """A fixed synthetic batch: mean-subtracted pixel-scale images on the
+    canvas, DT_GT boxes an image with classes and attributes."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.zeros((batch,) + tuple(canvas) + (3,), device=dev)
+    h, w = (int(v) for v in image)
+    images[:, :h, :w] = torch.randn(batch, h, w, 3, generator=gen, device=dev) * 50.0
+    xy = torch.rand(batch, DT_GT, 2, generator=gen, device=dev) * torch.tensor(
+        [w * 0.6, h * 0.6], device=dev)
+    wh = torch.rand(batch, DT_GT, 2, generator=gen, device=dev) * torch.tensor(
+        [w * 0.4, h * 0.4], device=dev) + 24.0
+    cls = torch.randint(1, DT_CLASSES, (batch, DT_GT, 1), generator=gen, device=dev).float()
+    return {"images": images,
+            "im_info": torch.tensor([[float(h), float(w), 1.0]] * batch, device=dev),
+            "gt_boxes": torch.cat([xy, xy + wh, cls], dim=-1),
+            "num_gt": torch.full((batch,), DT_GT, device=dev),
+            "gt_atts": (torch.rand(batch, DT_GT, max(n_atts, 1), generator=gen,
+                                   device=dev) > 0.9).float(),
+            "att_counts": torch.randint(1, 500, (max(n_atts, 1),), generator=gen,
+                                        device=dev).float()}
+
+
+def proposal_target_rois(gen: torch.Generator, dev: torch.device) -> torch.Tensor:
+    """512 RoIs laid out as proposal_target yields them: image-major, 128
+    an image with its index in column 0, boxes over the 600 x 1000 image
+    (heavily overlapping, a quarter near 8 ground-truth boxes) and a few
+    all-zero rows of images short of proposals."""
+    B, R = DT_BATCH, DT_ROIS
+    h, w = DT_IMAGE
+    gt_ctr = torch.rand(B, DT_GT, 2, generator=gen, device=dev) * torch.tensor(
+        [float(w), float(h)], device=dev)
+    ctr = torch.rand(B, R, 2, generator=gen, device=dev) * torch.tensor(
+        [float(w), float(h)], device=dev)
+    near = gt_ctr[:, torch.arange(R // 4, device=dev) % DT_GT]
+    ctr[:, :R // 4] = near + torch.randn(B, R // 4, 2, generator=gen, device=dev) * 8.0
+    wh = torch.rand(B, R, 2, generator=gen, device=dev) * 400.0 + 16.0
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
+    boxes[..., 0::2] = boxes[..., 0::2].clamp(0, w - 1)
+    boxes[..., 1::2] = boxes[..., 1::2].clamp(0, h - 1)
+    col = torch.arange(B, device=dev, dtype=torch.float32)[:, None, None].expand(B, R, 1)
+    rois = torch.cat([col, boxes], dim=-1)
+    rois[:, -2:, 1:] = 0.0
+    return rois.reshape(B * R, 5).contiguous()
+
+
+def phase_detector_train_kernels(dev: torch.device) -> dict:
+    """Kernel C and its backward kernel against the plain RoIAlign and its
+    autograd at the training shapes (f32 and bf16), and kernel D at the
+    RPN's training call (4 x 12,000, 0.7, 2,000 kept) against its plain
+    version. Returns the summary row of the backward (f32)."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rois = proposal_target_rois(gen, dev)
+    R = rois.shape[0]
+    kw = dict(spatial_scale=1.0 / det.FEAT_STRIDE, pooled_height=det.POOLING_SIZE,
+              pooled_width=det.POOLING_SIZE, sampling_ratio=2)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.tensor([], dtype=dtype).element_size()
+        n_feat = int(np.prod(DT_C4))
+        n_out = R * det.POOLING_SIZE * det.POOLING_SIZE * DT_C4[-1]
+        feats = torch.randn(DT_C4, generator=gen, device=dev).to(dtype)
+        got = roi_align.roi_align(feats, rois, **kw)
+        want = roi_align.roi_align_plain(feats, rois, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        atol, rtol = ROI_TOL[dtype]
+        within = bool((err <= atol + rtol * want.float().abs()).all())
+        kernel_ms, kernel_range = time_ms_range(lambda: roi_align.roi_align(feats, rois, **kw))
+        row = {"phase": "kernel", "name": "roi_align_train", "dtype": str(dtype).split(".")[-1],
+               "features": list(DT_C4), "rois": R, "max_abs_err": err.max().item(),
+               "tolerance": {"atol": atol, "rtol": rtol}, "within_tolerance": within,
+               "kernel_ms": kernel_ms, "kernel_ms_range": kernel_range,
+               "plain_ms": time_ms(lambda: roi_align.roi_align_plain(feats, rois, **kw), 2),
+               "library_ms": None,
+               **bound(n_feat * size + rois.numel() * 4 + n_out * size,
+                       ROI_OPS_PER_OUT * n_out, PEAK_OPS[torch.float32])}
+        emit(row)
+        if not within:
+            fail(f"roi_align ({row['dtype']}) disagrees with its plain version at the training "
+                 f"shapes: {row}")
+        del feats, got, want, err
+
+        grad_out = torch.randn(R, det.POOLING_SIZE, det.POOLING_SIZE, DT_C4[-1],
+                               generator=gen, device=dev).to(dtype)
+
+        def kernel():
+            return roi_align.roi_align_backward(grad_out, rois, DT_C4, **kw)
+
+        def plain():
+            return roi_align.roi_align_backward_plain(grad_out, rois, DT_C4, dtype, **kw)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        n_grad = grad_out.numel()
+        kernel_ms, kernel_range = time_ms_range(kernel)
+        row = {"phase": "kernel", "name": "roi_align_backward",
+               "dtype": str(dtype).split(".")[-1], "features": list(DT_C4), "rois": R,
+               "max_abs_err": err, "max_grad": scale, "rel_err": err / scale,
+               "tolerance_rel_to_max": ROI_BWD_TOL[dtype],
+               "kernel_ms": kernel_ms, "kernel_ms_range": kernel_range,
+               "plain_ms": time_ms(plain, 2),
+               # no PyTorch call computes RoIAlign or its gradient (no torchvision)
+               "library_ms": None,
+               # grad_out read once, grad_features written once: the
+               # kernel's zeroing pass over its f32 accumulator is its own
+               # overhead, not work the function needs
+               **bound(n_grad * size + rois.numel() * 4 + n_feat * size,
+                       ROI_BWD_OPS_PER_GRAD * n_grad, PEAK_OPS[torch.float32])}
+        emit(row)
+        if not err <= ROI_BWD_TOL[dtype] * scale or not scale > 0:
+            fail(f"roi_align_backward ({row['dtype']}) disagrees with autograd of the plain "
+                 f"version: {row}")
+        if dtype == torch.float32:
+            out["roi_align_backward"] = row
+        del grad_out, got, want
+
+    boxes, scores = seeded_nms_inputs(gen, dev, DT_BATCH, DT_PRE, True)
+    got = nms.nms(boxes, scores, DT_THRESH, max_out=DT_POST, presorted=True)
+    want = nms.nms_plain(boxes, scores, DT_THRESH, max_out=DT_POST, presorted=True)
+    torch.cuda.synchronize()
+    mismatches = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+    kernel_ms, kernel_range = time_ms_range(
+        lambda: nms.nms(boxes, scores, DT_THRESH, max_out=DT_POST, presorted=True))
+    words = -(-DT_PRE // 64)
+    emit({"phase": "kernel", "name": "nms_rpn_train", "groups": DT_BATCH, "boxes": DT_PRE,
+          "threshold": DT_THRESH, "max_out": DT_POST, "mismatches": mismatches,
+          "kept_per_group": got[1].sum(dim=1).float().mean().item(),
+          "bitmask_mb": DT_BATCH * DT_PRE * words * 8 / 1e6,
+          "scan_smem_bytes": _build.library().ssc_nms_scan_smem_bytes(words),
+          "kernel_ms": kernel_ms, "kernel_ms_range": kernel_range,
+          "plain_ms": time_ms(lambda: nms.nms_plain(boxes, scores, DT_THRESH, max_out=DT_POST,
+                                                    presorted=True), 1, warmup=0),
+          "library_ms": None,
+          **bound(boxes.numel() * 4 + DT_BATCH * (DT_POST * 4 + DT_PRE),
+                  NMS_OPS_PER_PAIR * DT_BATCH * DT_PRE * (DT_PRE - 1) / 2,
+                  PEAK_OPS[torch.float32]),
+          "bound_note": NMS_BOUND_NOTE})
+    if mismatches:
+        fail(f"nms at the RPN's training call: {mismatches} entries differ from the plain "
+             "version")
+    return out
+
+
+def detector_counts() -> dict:
+    return {"roi_align": roi_align.launches, "roi_align_backward": roi_align.backward_launches,
+            "nms": nms.launches}
+
+
+def reset_detector_counts() -> None:
+    roi_align.launches = roi_align.backward_launches = nms.launches = 0
+    nms.launches_by_shape.clear()
+
+
+def train_detector_row(dev, cfg, batch, bf16: bool, steps: int, timed: int, phase: str,
+                       extra: dict, profiled: bool = False) -> dict:
+    """``steps`` training steps of ``cfg`` on a fixed batch from a fresh
+    seeded init: ms a step (the median of the last ``timed``), images/s,
+    peak memory, the losses, the kernels' launches a step; with
+    ``profiled``, the card's time a step, its busy share and its largest
+    kernels from a profiler trace of 2 more steps (not counted)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_detector(cfg, seed=0, device=dev)
+    opt = DetectorSGD(params, lr=1e-3, momentum=0.9, weight_decay=1e-4, steps_per_epoch=100)
+    step = train_detector_cli.make_train_step(cfg, opt, bf16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_detector_counts()
+    ms = timed_steps(lambda: losses.append(step(params, batch, gen)), steps)
+    counts = detector_counts()
+    med, rng_ = median_range(ms[-timed:])
+    prof = {}
+    if profiled:
+        prof = profile_steps(lambda: step(params, batch, gen), 2, top=8)
+        busy = prof["device_ms_per_step"]
+        prof["device_busy_share"] = None if busy is None else busy / med
+    total = [x["total"].item() for x in losses]
+    finite = all(bool(torch.isfinite(v).all()) for x in losses for v in x.values())
+    row = {"phase": phase, **extra, "dtype": "bf16" if bf16 else "f32",
+           "batch": batch["images"].shape[0], "canvas": list(batch["images"].shape[1:3]),
+           "steps": steps, "first_step_ms": ms[0], "step_ms": med, "step_ms_range": rng_,
+           "images_per_s": batch["images"].shape[0] / med * 1e3,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_first": total[0], "loss_last": total[-1], "losses_finite": finite,
+           "last_losses": {k: v.item() for k, v in losses[-1].items()},
+           "launches_per_step": {k: v / steps for k, v in counts.items()}, **prof}
+    emit(row)
+    if not finite:
+        fail(f"{phase}: a loss is not finite: {total}")
+    del params, opt, step
+    return row
+
+
+def phase_detector_train(dev: torch.device) -> dict:
+    """The training step at full width (ResNet-101, 81 classes, 196
+    attributes, 4 images on 640 x 1024, 12,000 / 2,000, 128 RoIs), f32 with
+    TF32 off, then bf16 compute; each step must launch C, its backward and
+    D once. Returns the launches."""
+    cfg = train_detector_cfg()
+    batch = train_detector_batch(dev, DT_BATCH, DT_CANVAS, DT_IMAGE, DT_ATTS, seed=5)
+    launches = {"roi_align": 0, "roi_align_backward": 0, "nms_rpn": 0}
+    for bf16 in (False, True):
+        row = train_detector_row(dev, cfg, batch, bf16, DT_STEPS, DT_TIMED, "detector_train",
+                                 {"depth": DET_DEPTH, "classes": DT_CLASSES,
+                                  "attributes": DT_ATTS, "rpn": [DT_PRE, DT_POST],
+                                  "rois_per_image": DT_ROIS}, profiled=True)
+        per_step = row["launches_per_step"]
+        if per_step != {"roi_align": 1.0, "roi_align_backward": 1.0, "nms": 1.0}:
+            fail(f"detector_train: launches a step {per_step}, expected one of C, its "
+                 "backward and D")
+        launches["roi_align"] += DT_STEPS
+        launches["roi_align_backward"] += DT_STEPS
+        launches["nms_rpn"] += DT_STEPS
+    return launches
+
+
+def phase_train_detector_cli(dev: torch.device) -> dict:
+    """The train CLI (``python -m style_seqcvae_tpu_torch.scripts.train_detector``)
+    on 8 JPEG fixtures (ResNet-101, 2 images a step, one epoch), then the
+    extract CLI from its checkpoint with --detections-output, then
+    eval_detections. Returns the launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        inst_all, image_root, attribs = write_extract_world(root / "world")
+        data = json.loads(Path(inst_all).read_text())
+        keep = [im for im in data["images"] if im["file_name"].endswith(".jpg")][:DT_CLI_IMAGES]
+        ids = {im["id"] for im in keep}
+        data.update(images=keep, annotations=[a for a in data["annotations"]
+                                              if a["image_id"] in ids])
+        inst = root / "instances_train.json"
+        inst.write_text(json.dumps(data))
+        ser = root / "det"
+        reset_detector_counts()
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = train_detector_cli.main([
+                "--instances-json", str(inst), "--image-root", image_root,
+                "--attribs-dir", attribs, "--serialization-dir", str(ser), "--epochs", "1",
+                "--ims-per-batch", str(DT_CLI_IMS), "--depth", str(DET_DEPTH),
+                "--config-override", "DET.TRAIN.DISPLAY", "1"], stats=stats)
+        wall = time.perf_counter() - t0
+        train_counts = detector_counts()
+        rows = [json.loads(line) for line in (ser / "metrics.jsonl").read_text().splitlines()]
+        steps = DT_CLI_IMAGES // DT_CLI_IMS
+        finite = all(np.isfinite(r["total"]) for r in rows)
+
+        reset_detector_counts()
+        dets = root / "dets.json"
+        with contextlib.redirect_stdout(printed):
+            xrc = extract_cli.main([
+                "--instances-json", str(inst), "--image-root", image_root,
+                "--attribs-dir", attribs, "--checkpoint-path", str(ser / "detector_epoch_1"),
+                "--output", str(root / "f.h5"), "--detections-output", str(dets),
+                "--batch-size", str(DT_CLI_IMAGES), "--depth", str(DET_DEPTH),
+                "--thresh", "0.0"])
+            result = {}
+            erc = eval_detections_cli.main(["--detections", str(dets), "--instances-json",
+                                             str(inst)], stats=result)
+        extract_counts = detector_counts()
+        emit({"phase": "train_detector_cli", "rc": rc, "images": DT_CLI_IMAGES,
+              "ims_per_batch": DT_CLI_IMS, "steps": stats["steps"], "wall_s": wall,
+              "step_ms": stats["step_ms"], "data_ms": stats["data_ms"],
+              "load_s": stats["load_s"], "metrics_rows": len(rows), "losses_finite": finite,
+              "total_first": rows[0]["total"] if rows else None,
+              "total_last": rows[-1]["total"] if rows else None,
+              "train_launches": train_counts, "extract_rc": xrc, "eval_rc": erc,
+              "extract_launches": extract_counts,
+              "detections": len(json.loads(dets.read_text())),
+              "mAP": result.get("mAP"), "AP50": result.get("AP50"),
+              "AP75": result.get("AP75"),
+              "note": "4 steps from a random init: a near-zero mAP is expected"})
+        want_train = {"roi_align": steps, "roi_align_backward": steps, "nms": steps}
+        if rc != 0 or xrc != 0 or erc != 0 or stats["steps"] != steps or not finite \
+                or len(rows) != steps:
+            fail(f"train_detector_cli: rc {rc}, extract rc {xrc}, eval rc {erc}, "
+                 f"{stats['steps']} steps, {len(rows)} metric rows, finite {finite}")
+        if train_counts != want_train:
+            fail(f"train_detector_cli launches {train_counts}, expected {want_train}")
+        if extract_counts != {"roi_align": 1, "roi_align_backward": 0, "nms": 1}:
+            fail(f"train_detector_cli: the extract run's launches {extract_counts}")
+    return {"roi_align": steps + 1, "roi_align_backward": steps, "nms_rpn": steps + 1}
+
+
+def phase_detector_variants(dev: torch.device) -> dict:
+    """VGG16 (no attribute head) with align, pool and crop: one inference
+    forward at config 5's canvas on 2 images, and 2 training steps. Returns
+    the launches (align only runs kernel C and its backward)."""
+    launches = {"roi_align": 0, "roi_align_backward": 0, "nms_rpn": 0, "nms_per_class": 0}
+    batch = train_detector_batch(dev, VARIANT_BATCH, CANVAS, IM_INFO[:2], 0, seed=7)
+    for mode in ("align", "pool", "crop"):
+        cfg = train_detector_cfg("vgg16", mode, num_att_classes=0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = init_detector(cfg, seed=0, device=dev)
+        im_info = batch["im_info"]
+        with torch.inference_mode():
+            detector_forward_test(params, cfg, batch["images"], im_info)      # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_detector_counts()
+            t0 = time.perf_counter()
+            out = detector_forward_test(params, cfg, batch["images"], im_info)
+            torch.cuda.synchronize()
+            infer_ms = (time.perf_counter() - t0) * 1e3
+        infer_counts = detector_counts()
+        finite = bool(torch.isfinite(out["pooled_feat"].float()).all())
+        emit({"phase": "detector_variants_infer", "backbone": "vgg16", "pooling_mode": mode,
+              "batch": VARIANT_BATCH, "canvas": list(CANVAS), "ms": infer_ms,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "pooled_feat": list(out["pooled_feat"].shape), "finite": finite,
+              "launches": infer_counts})
+        if not finite or out["pooled_feat"].shape[-1] != 4096:
+            fail(f"detector_variants: the vgg16 {mode} forward is bad")
+        want = {"roi_align": int(mode == "align"), "roi_align_backward": 0, "nms": 1}
+        if infer_counts != want:
+            fail(f"detector_variants: vgg16 {mode} forward launches {infer_counts}, "
+                 f"expected {want}")
+        del params, out
+        row = train_detector_row(dev, cfg, batch, False, VARIANT_TRAIN_STEPS,
+                                 VARIANT_TRAIN_STEPS, "detector_variants_train",
+                                 {"backbone": "vgg16", "pooling_mode": mode})
+        align = float(mode == "align")
+        want = {"roi_align": align, "roi_align_backward": align, "nms": 1.0}
+        if row["launches_per_step"] != want:
+            fail(f"detector_variants: vgg16 {mode} training launches "
+                 f"{row['launches_per_step']}, expected {want}")
+        launches["roi_align"] += infer_counts["roi_align"] + int(align) * VARIANT_TRAIN_STEPS
+        launches["roi_align_backward"] += int(align) * VARIANT_TRAIN_STEPS
+        launches["nms_rpn"] += 1 + VARIANT_TRAIN_STEPS
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2634,6 +3051,14 @@ def main() -> int:
     phase_serve_agree(dev)
     new_launches.append(phase_serve(dev, det_state, decode_state))
     phase_serve_http(dev)
+    # detector training after every earlier path, so that those run as
+    # before: the backward kernel's and D's training call's checks, then
+    # the training step, the train CLI and the VGG16 variants, whose
+    # launches add to C's, the backward's and D's RPN counts
+    det_rows.update(phase_detector_train_kernels(dev))
+    launches["roi_align_backward"] = 0
+    new_launches += [phase_detector_train(dev), phase_train_detector_cli(dev),
+                     phase_detector_variants(dev)]
     for counts in new_launches:
         for name, n in counts.items():
             launches[name] += n

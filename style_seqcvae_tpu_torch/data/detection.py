@@ -8,10 +8,8 @@ canvases (counterpart of ``style_seqcvae_tpu/data/detection.py``).
   to float32 BGR HWC on a device (``data/image_decode.py``).
 * :func:`prepare_image`: JAX ``prepare_image_np`` (``:179-201``) on tensors,
   on the image's device.
+* :func:`flip_record`: JAX ``:204-214``, the image flipped on its own device.
 * :func:`canvas_for` and :func:`make_batch`: JAX ``:217-259``.
-
-``flip_record`` (training augmentation) waits for detector training
-(ROADMAP A8.3).
 """
 
 from __future__ import annotations
@@ -194,6 +192,20 @@ def prepare_image(img: torch.Tensor, target_size: int, max_size: int
            + (bottom.index_select(1, x0) * wy * (1 - wx))
            + (bottom.index_select(1, x1) * wy * wx))
     return out.float(), scale
+
+
+def flip_record(record: Dict[str, Any], img: torch.Tensor
+                ) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """Horizontal flip of an (H, W, 3) image and of its record's boxes
+    (x1, x2 mirrored at the image's width), the training augmentation."""
+    W = img.shape[1]
+    boxes = record["boxes"].copy()
+    x1 = boxes[:, 0].copy()
+    boxes[:, 0] = W - boxes[:, 2] - 1
+    boxes[:, 2] = W - x1 - 1
+    out = dict(record)
+    out["boxes"] = boxes
+    return out, torch.flip(img, dims=[1])
 
 
 def canvas_for(record: Dict[str, Any], canvas_hw: Tuple[int, int]) -> Tuple[int, int]:

@@ -3,7 +3,8 @@
 
 :func:`backbone` is conv1 .. layer3 (stride 16, 1024 channels, the C4 map);
 :func:`head_to_tail` is layer4 plus global average pooling, the 2048-d
-bottom-up feature of each RoI. The public functions take and return NHWC
+bottom-up feature of each RoI; :func:`trainable_label` names the pieces
+that detector training keeps frozen. The public functions take and return NHWC
 tensors, as the JAX package does. Inside, an NHWC tensor's
 ``permute(0, 3, 1, 2)`` is an NCHW view in channels_last memory, which
 ``F.conv2d`` takes as it is, so the layout switch costs no copy. Weights are
@@ -24,6 +25,7 @@ from typing import Any, Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 LAYERS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
@@ -109,9 +111,16 @@ def _bottleneck(x: torch.Tensor, p: Dict[str, Any], stride: int) -> torch.Tensor
     return F.relu(out + x)
 
 
-def _layer(x: torch.Tensor, blocks: List[Dict[str, Any]], first_stride: int) -> torch.Tensor:
+def _layer(x: torch.Tensor, blocks: List[Dict[str, Any]], first_stride: int,
+           remat: bool = False) -> torch.Tensor:
     for bi, p in enumerate(blocks):
-        x = _bottleneck(x, p, first_stride if bi == 0 else 1)
+        stride = first_stride if bi == 0 else 1
+        if remat and torch.is_grad_enabled():
+            # keep only the blocks' outputs; recompute each block's inside in
+            # the backward (JAX: jax.checkpoint of the bottleneck)
+            x = checkpoint(_bottleneck, x, p, stride, use_reentrant=False)
+        else:
+            x = _bottleneck(x, p, stride)
     return x
 
 
@@ -123,15 +132,16 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()     # no copy for channels_last
 
 
-def backbone(params: Dict[str, Any], images: torch.Tensor) -> torch.Tensor:
+def backbone(params: Dict[str, Any], images: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """images (B, H, W, 3) BGR, mean-subtracted → C4 features
-    (B, H/16, W/16, 1024), NHWC-contiguous."""
+    (B, H/16, W/16, 1024), NHWC-contiguous. ``remat`` recomputes each
+    bottleneck in the backward instead of keeping its activations."""
     x = _nchw(images.contiguous())
     x = F.relu(_bn(F.conv2d(x, params["conv1"], stride=2, padding=3), params["bn1"]))
     x = F.max_pool2d(x, kernel_size=3, stride=2, padding=0, ceil_mode=True)
-    x = _layer(x, params["layer1"], 1)
-    x = _layer(x, params["layer2"], 2)
-    x = _layer(x, params["layer3"], 2)
+    x = _layer(x, params["layer1"], 1, remat)
+    x = _layer(x, params["layer2"], 2, remat)
+    x = _layer(x, params["layer3"], 2, remat)
     return _nhwc(x)
 
 
@@ -140,3 +150,17 @@ def head_to_tail(params: Dict[str, Any], pooled: torch.Tensor) -> torch.Tensor:
     (R, 2048)."""
     x = _layer(_nchw(pooled.contiguous()), params["layer4"], 2)
     return x.mean(dim=(2, 3))
+
+
+def trainable_label(path_keys: List[str]) -> str:
+    """'never' for the frozen pieces (conv1, every BatchNorm, layer1), else
+    'always' (the reference's FIXED_BLOCKS = 1 and its fixed BatchNorm)."""
+    keys = [str(k) for k in path_keys]
+    if any(k.startswith("bn") or k in ("scale", "offset", "mean", "var", "downsample_bn")
+           for k in keys):
+        return "never"
+    if "conv1" in keys and not any(k.startswith("layer") for k in keys):
+        return "never"
+    if "layer1" in keys:
+        return "never"
+    return "always"

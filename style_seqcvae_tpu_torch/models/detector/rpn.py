@@ -1,24 +1,51 @@
-"""Region proposal network and proposal layer, inference only (counterpart
-of ``style_seqcvae_tpu/models/detector/rpn.py``).
+"""Region proposal network, proposal layer and anchor-target layer
+(counterpart of ``style_seqcvae_tpu/models/detector/rpn.py``).
 
 Everything has a fixed shape: the proposal layer decodes all grid anchors,
 takes the ``pre_nms_top_n`` best by score, runs greedy NMS and emits exactly
 ``post_nms_top_n`` rois per image, zero-padded. On CUDA the NMS is kernel D
 (``ops/kernels/nms.py``), one launch for the whole batch; on the CPU its
 plain version.
+
+The anchor-target layer labels every anchor and subsamples the RPN's
+minibatch as JAX's does: a uniform subset without replacement by a stable
+sort of uniform priorities. JAX draws those uniforms from PRNG keys inside;
+here they are inputs, (B, N) each for the foreground and the background
+subsampling, so that a caller (or a test, with JAX's own draws) decides them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from style_seqcvae_tpu_torch.models.detector.anchors import generate_anchors, shifted_anchors
-from style_seqcvae_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
+from style_seqcvae_tpu_torch.ops.boxes import (
+    bbox_overlaps,
+    bbox_transform,
+    bbox_transform_inv,
+    clip_boxes,
+)
 from style_seqcvae_tpu_torch.ops.kernels import nms as nms_kernel
+
+
+class RPNConfig(NamedTuple):
+    """The RPN's training settings (JAX ``rpn.py:28-40``)."""
+    feat_stride: int = 16
+    anchor_scales: Tuple[int, ...] = (4, 8, 16, 32)
+    anchor_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    pre_nms_top_n: int = 12000
+    post_nms_top_n: int = 2000
+    nms_thresh: float = 0.7
+    rpn_batch_size: int = 256
+    fg_fraction: float = 0.5
+    positive_overlap: float = 0.7
+    negative_overlap: float = 0.3
+    allowed_border: int = 0
+    clobber_positives: bool = False
 
 
 def init_rpn(gen: torch.Generator, in_ch: int = 1024, num_anchors: int = 12, *,
@@ -108,3 +135,100 @@ def anchors_for(feat_h: int, feat_w: int, feat_stride: int, scales, ratios,
     a = shifted_anchors(feat_h, feat_w, feat_stride,
                         generate_anchors(feat_stride, ratios, scales))
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+def _random_subsample(mask: torch.Tensor, num_keep: torch.Tensor,
+                      uniforms: torch.Tensor) -> torch.Tensor:
+    """Keep ``num_keep`` (B,) of the True entries of ``mask`` (B, N): those
+    with the largest ``uniforms`` (B, N) in [0, 1), ties to the lower index
+    (a stable sort, as ``jnp.argsort``)."""
+    priority = torch.where(mask, uniforms, -1.0)
+    order = torch.argsort(-priority, dim=-1, stable=True)
+    n = mask.shape[-1]
+    rank = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(n, device=mask.device).expand_as(order))
+    return mask & (rank < num_keep[..., None])
+
+
+def anchor_target(all_anchors: torch.Tensor, gt_boxes: torch.Tensor, num_gt: torch.Tensor,
+                  im_info: torch.Tensor, uniforms: Tuple[torch.Tensor, torch.Tensor],
+                  cfg: RPNConfig):
+    """The RPN's labels and targets for every anchor.
+
+    all_anchors (N, 4); gt_boxes (B, G, 5) (class last); num_gt (B,);
+    im_info (B, 3) rows (height, width, scale); ``uniforms`` the (B, N)
+    foreground and background draws of the subsampling. Returns labels
+    (B, N) in {-1, 0, 1}, bbox_targets (B, N, 4) and the inside and outside
+    weights (B, N). Like JAX's, the border test reads image 0's size for
+    every image."""
+    fg_u, bg_u = uniforms
+    B, G = gt_boxes.shape[:2]
+    dev = gt_boxes.device
+    border = cfg.allowed_border
+    inside = ((all_anchors[:, 0] >= -border) & (all_anchors[:, 1] >= -border)
+              & (all_anchors[:, 2] < im_info[0, 1] + border)
+              & (all_anchors[:, 3] < im_info[0, 0] + border))
+    gt_valid = torch.arange(G, device=dev)[None, :] < num_gt[:, None]      # (B, G)
+    ov = bbox_overlaps(all_anchors, gt_boxes[..., :4])                    # (B, N, G)
+    ov = torch.where(gt_valid[:, None, :], ov, -1.0)
+    max_ov = ov.amax(dim=2)
+    argmax_ov = ov.argmax(dim=2)                       # the first of equal maxima
+    gt_max = torch.where(inside[None, :, None], ov, -1.0).amax(dim=1)    # (B, G)
+    gt_max = torch.where(gt_max == 0, 1e-5, gt_max)
+
+    labels = torch.full(max_ov.shape, -1.0, device=dev)
+    negative = inside & (max_ov < cfg.negative_overlap)
+    if not cfg.clobber_positives:
+        labels = torch.where(negative, 0.0, labels)
+    # anchors at some gt's largest overlap (f32 equality, as JAX tests it)
+    is_best = ((ov == gt_max[:, None, :]) & gt_valid[:, None, :]).any(dim=2)
+    labels = torch.where(inside & is_best, 1.0, labels)
+    labels = torch.where(inside & (max_ov >= cfg.positive_overlap), 1.0, labels)
+    if cfg.clobber_positives:
+        labels = torch.where(negative, 0.0, labels)
+
+    num_fg = int(cfg.fg_fraction * cfg.rpn_batch_size)
+    fg_mask = labels == 1
+    fg_keep = _random_subsample(fg_mask, fg_mask.sum(dim=1).clamp(max=num_fg), fg_u)
+    labels = torch.where(fg_mask & ~fg_keep, -1.0, labels)
+    num_bg = cfg.rpn_batch_size - (labels == 1).sum(dim=1)
+    bg_mask = labels == 0
+    bg_keep = _random_subsample(bg_mask, torch.minimum(bg_mask.sum(dim=1), num_bg), bg_u)
+    labels = torch.where(bg_mask & ~bg_keep, -1.0, labels)
+
+    gt_of = torch.gather(gt_boxes[..., :4], 1, argmax_ov[..., None].expand(B, -1, 4))
+    targets = bbox_transform(all_anchors.expand_as(gt_of), gt_of)
+    num_examples = (labels >= 0).sum(dim=1).clamp(min=1)
+    inside_w = torch.where(labels == 1, 1.0, 0.0)
+    outside_w = torch.where(labels >= 0, 1.0 / num_examples[:, None], 0.0)
+    return labels, targets, inside_w, outside_w
+
+
+def rpn_losses(cls_logits: torch.Tensor, bbox_deltas: torch.Tensor, labels: torch.Tensor,
+               bbox_targets: torch.Tensor, inside_w: torch.Tensor, outside_w: torch.Tensor):
+    """The RPN's cross entropy over the sampled anchors and its smooth-L1
+    (sigma 3) box loss."""
+    B = cls_logits.shape[0]
+    logits = cls_logits.reshape(B, -1, 2)
+    mask = labels >= 0
+    lab = labels.clamp(0, 1).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    loss_cls = torch.where(mask, ce, 0.0).sum() / mask.sum().clamp(min=1)
+    deltas = bbox_deltas.reshape(B, -1, 4)
+    loss_box = smooth_l1_loss(deltas, bbox_targets, inside_w[..., None], outside_w[..., None],
+                              sigma=3.0, reduce_dims=(1, 2))
+    return loss_cls, loss_box
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, inside_w: torch.Tensor,
+                   outside_w: torch.Tensor, sigma: float = 1.0,
+                   reduce_dims: Tuple[int, ...] = (1,)) -> torch.Tensor:
+    """Smooth L1: summed over ``reduce_dims``, then the mean."""
+    sigma2 = sigma ** 2
+    diff = inside_w * (pred - target)
+    ad = diff.abs()
+    flag = (ad < 1.0 / sigma2).to(pred.dtype)
+    loss = flag * 0.5 * sigma2 * diff ** 2 + (1 - flag) * (ad - 0.5 / sigma2)
+    loss = outside_w * loss
+    return loss.sum(dim=reduce_dims).mean()

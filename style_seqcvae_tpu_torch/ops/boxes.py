@@ -1,6 +1,6 @@
-"""Box geometry of the detector's inference path (counterpart of
-``style_seqcvae_tpu/ops/boxes.py``: ``bbox_transform_inv``, ``clip_boxes``
-and ``bbox_overlaps``).
+"""Box geometry of the detector (counterpart of
+``style_seqcvae_tpu/ops/boxes.py``: ``bbox_transform``,
+``bbox_transform_inv``, ``clip_boxes`` and ``bbox_overlaps``).
 
 Boxes are (x1, y1, x2, y2) inclusive, so a width is x2 - x1 + 1 (the legacy
 Faster R-CNN convention). Class-specific deltas and boxes keep the strided
@@ -14,6 +14,21 @@ from typing import Union
 import torch
 
 Bound = Union[float, torch.Tensor]
+
+
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor) -> torch.Tensor:
+    """Regression targets from example boxes to ground-truth boxes:
+    (..., 4) and (..., 4) → (..., 4) deltas (dx, dy, dw, dh)."""
+    ex_w = ex_rois[..., 2] - ex_rois[..., 0] + 1.0
+    ex_h = ex_rois[..., 3] - ex_rois[..., 1] + 1.0
+    ex_cx = ex_rois[..., 0] + 0.5 * ex_w
+    ex_cy = ex_rois[..., 1] + 0.5 * ex_h
+    gt_w = gt_rois[..., 2] - gt_rois[..., 0] + 1.0
+    gt_h = gt_rois[..., 3] - gt_rois[..., 1] + 1.0
+    gt_cx = gt_rois[..., 0] + 0.5 * gt_w
+    gt_cy = gt_rois[..., 1] + 0.5 * gt_h
+    return torch.stack([(gt_cx - ex_cx) / ex_w, (gt_cy - ex_cy) / ex_h,
+                        torch.log(gt_w / ex_w), torch.log(gt_h / ex_h)], dim=-1)
 
 
 def bbox_transform_inv(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:

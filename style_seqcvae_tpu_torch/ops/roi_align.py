@@ -1,5 +1,5 @@
-"""RoIAlign forward, plain PyTorch (counterpart of
-``style_seqcvae_tpu/ops/roi_align.py::roi_align``).
+"""RoIAlign forward and RoI max pooling, plain PyTorch (counterpart of
+``style_seqcvae_tpu/ops/roi_align.py``: ``roi_align`` and ``roi_pool``).
 
 This is kernel C's plain version (``ops/kernels/roi_align.py``). NHWC
 features (B, H, W, C) and rois (R, 5) ``[batch_idx, x1, y1, x2, y2]`` in
@@ -8,10 +8,15 @@ the mean of sampling_ratio² bilinear samples, with the boundary rules of the
 classic CUDA kernel: a sample outside [-1, H] × [-1, W] is empty, negative
 coordinates clamp to 0 and the low corner clamps to H-1 / W-1. Arithmetic is
 f32 whatever the features' dtype.
+
+:func:`roi_pool` has no kernel behind it (no TPU kernel either): each bin's
+window is gathered for all RoIs at once and reduced with ``amax``, whose
+gradient divides evenly among tied maxima as JAX's ``jnp.max`` does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # RoIs gathered at once: bounds the (chunk, PH, PW, S, S, C) corner gather
@@ -24,6 +29,11 @@ def _div(a: torch.Tensor, n: int) -> torch.Tensor:
     ulp of a map coordinate moves a bilinear weight by as much, which the
     features' local differences then multiply."""
     return a / torch.tensor(float(n), dtype=a.dtype, device=a.device)
+
+
+def _recip(n: int) -> float:
+    """1 / n rounded to f32."""
+    return float(np.float32(1.0) / np.float32(n))
 
 
 def sample_grid(rois: torch.Tensor, *, height: int, width: int, spatial_scale: float,
@@ -90,3 +100,57 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, *, spatial_scale: floa
             acc += (v * w[..., corner, None]).sum(dim=(3, 4))
         out[r0:r0 + _ROIS_PER_CHUNK] = _div(acc, S * S).to(features.dtype)
     return out
+
+
+def roi_pool(features: torch.Tensor, rois: torch.Tensor, *, spatial_scale: float,
+             pooled_height: int = 7, pooled_width: int = 7) -> torch.Tensor:
+    """Max RoI pooling with the classic CUDA RoIPool's integer bins: the
+    rounded, scaled RoI split at floor / ceil edges, empty bins 0.
+    features (B, H, W, C); rois (R, 5) → (R, PH, PW, C), features' dtype.
+
+    JAX's formulation masks ``features[batch_idx]``, an (R, H, W, C) tensor,
+    for each bin. Here each bin gathers only its own window, padded to the
+    longest window of the call: (R, h, w, C) with h, w at most a bin's size
+    plus one (one host sync per call reads them)."""
+    B, H, W, C = features.shape
+    R = rois.shape[0]
+    f32 = torch.float32
+    rois = rois.to(f32)
+    x1 = torch.round(rois[:, 1] * spatial_scale)
+    y1 = torch.round(rois[:, 2] * spatial_scale)
+    x2 = torch.round(rois[:, 3] * spatial_scale)
+    y2 = torch.round(rois[:, 4] * spatial_scale)
+    # the bin size as JAX's roi_pool computes it under jit: XLA turns the
+    # division by the constant bin count into a product with its f32
+    # reciprocal, and the floor / ceil edges below are where that shows
+    bin_w = torch.clamp(x2 - x1 + 1.0, min=1.0) * _recip(pooled_width)
+    bin_h = torch.clamp(y2 - y1 + 1.0, min=1.0) * _recip(pooled_height)
+
+    def edges(n_bins: int, bin_size: torch.Tensor, lo: torch.Tensor, size: int):
+        p = torch.arange(n_bins, dtype=f32, device=rois.device)[None, :]
+        start = (torch.floor(p * bin_size[:, None]) + lo[:, None]).clamp(0, size)
+        end = (torch.ceil((p + 1) * bin_size[:, None]) + lo[:, None]).clamp(0, size)
+        return start.long(), end.long()                       # (R, bins) each
+
+    hs, he = edges(pooled_height, bin_h, y1, H)
+    ws, we = edges(pooled_width, bin_w, x1, W)
+    longest = torch.stack([(he - hs).max(), (we - ws).max()]) if R else None
+    hl, wl = (max(int(v), 1) for v in longest.tolist()) if R else (1, 1)
+    flat = features.reshape(B * H * W, C)
+    base = rois[:, 0].long() * (H * W)
+    di = torch.arange(hl, device=rois.device)
+    dj = torch.arange(wl, device=rois.device)
+    bins = []
+    for ph in range(pooled_height):
+        rows = hs[:, ph, None] + di[None, :]                  # (R, hl)
+        row_ok = rows < he[:, ph, None]
+        for pw in range(pooled_width):
+            cols = ws[:, pw, None] + dj[None, :]              # (R, wl)
+            ok = row_ok[:, :, None] & (cols < we[:, pw, None])[:, None, :]
+            idx = (base[:, None, None] + rows.clamp(max=H - 1)[:, :, None] * W
+                   + cols.clamp(max=W - 1)[:, None, :])
+            v = torch.where(ok[..., None], flat[idx], float("-inf"))
+            m = torch.amax(v, dim=(1, 2))                     # (R, C)
+            empty = ~ok.flatten(1).any(dim=1)
+            bins.append(torch.where(empty[:, None], 0.0, m).to(features.dtype))
+    return torch.stack(bins, dim=1).reshape(R, pooled_height, pooled_width, C)

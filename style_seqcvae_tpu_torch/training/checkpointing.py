@@ -41,6 +41,18 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
     return load_params_npz(f)
 
 
+def write_checkpoint(path: str, flat: Dict[str, np.ndarray]) -> None:
+    """Write the checkpoint directory ``path`` holding ``flat`` (tree paths
+    joined by ``/`` → arrays) as its ``state.npz``, replacing one that is
+    there; a write that is cut leaves the old directory in place."""
+    tmp = path + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, STATE_FILE), **flat)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
 class CheckpointManager:
     def __init__(self, serialization_dir: str, mode: str = "max", keep: int = 10):
         """``keep``: retain at most this many ``checkpoint_{it}`` directories
@@ -100,12 +112,7 @@ class CheckpointManager:
         flat = {k: t.detach().cpu().numpy() for k, t in flat.items()}
         flat["opt_state/step"] = np.asarray(state.step, np.int32)
         flat["generator"] = state.generator.get_state().numpy()
-        path, tmp = self._path(name), self._path(name + ".tmp")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        np.savez(os.path.join(tmp, STATE_FILE), **flat)
-        shutil.rmtree(path, ignore_errors=True)
-        os.replace(tmp, path)
+        write_checkpoint(self._path(name), flat)
 
     def restore(self, name: str, target_state):
         """Load the directory ``name`` into ``target_state`` in place (its

@@ -7,6 +7,9 @@ updown_captioner.py and modules/updown_cell.py) onto the port's parameter
 tree: each ``nn.LSTMCell`` fused as ``w = [w_ihᵀ; w_hhᵀ]``, ``b = b_ih +
 b_hh``; the BUTD projections, ``fc_mean`` and ``fc_log_var`` transposed; the
 tied output projection or the untied output layer.
+:func:`import_resnet_state_dict`, :func:`import_vgg_state_dict` and
+:func:`import_detector_state_dict` map torchvision and reference detector
+state dicts onto the port's detector params.
 :func:`import_baseline_state_dict` maps an updown-baseline captioner's
 (one language LSTM, no ``fc_*``) onto the baseline family's tree.
 """
@@ -134,6 +137,21 @@ def import_resnet_state_dict(sd: Mapping, depth: int = 101, *, device: Device = 
     for li, n in enumerate(LAYERS[depth], start=1):
         tree[f"layer{li}"] = [_bottleneck(sd, f"layer{li}.{bi}") for bi in range(n)]
     return from_jax_detector_params({"resnet": tree}, device=device, dtype=dtype)["resnet"]
+
+
+def import_vgg_state_dict(sd: Mapping, *, device: Device = None,
+                          dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """A torchvision-named VGG16 state dict (``features.N``,
+    ``classifier.0`` / ``.3``) → the port's ``vgg`` subtree on ``device``:
+    the 13 convs and fc6 / fc7 (transposed to (in, out))."""
+    conv_idx = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+    tree: Dict[str, Any] = {
+        "convs": [{"w": _conv(sd, f"features.{i}.weight"), "b": _np(sd[f"features.{i}.bias"])}
+                  for i in conv_idx],
+        "fc6": {"w": _np(sd["classifier.0.weight"]).T, "b": _np(sd["classifier.0.bias"])},
+        "fc7": {"w": _np(sd["classifier.3.weight"]).T, "b": _np(sd["classifier.3.bias"])},
+    }
+    return from_jax_detector_params({"vgg": tree}, device=device, dtype=dtype)["vgg"]
 
 
 def import_detector_state_dict(sd: Mapping, depth: int = 101, num_anchors: int = 12, *,

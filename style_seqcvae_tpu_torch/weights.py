@@ -201,13 +201,12 @@ def from_jax_detector_params(tree: Dict[str, Any], *,
                              dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """JAX detector params (numpy leaves) → the port's detector params on
     ``device``: ``resnet`` (``conv1``, ``bn1``, ``layer1`` .. ``layer4`` lists
-    of bottleneck dicts with an optional ``downsample``), ``rpn`` (``conv``,
+    of bottleneck dicts with an optional ``downsample``) or ``vgg``
+    (``convs``, a list of {"w", "b"}, ``fc6``, ``fc7``), ``rpn`` (``conv``,
     ``cls``, ``bbox``), ``cls_score``, ``bbox_pred`` and ``cls_score_atts``.
     Conv kernels (the 4-D leaves) go from HWIO to OIHW, kept in
     channels_last memory; nothing else changes layout. ``dtype`` casts
     every leaf; ``None`` keeps the leaves' own type."""
-    if "resnet" not in tree:
-        raise NotImplementedError("only the ResNet backbone is ported (ROADMAP A8.1)")
     dev = resolve_device(device)
 
     def convert(node):
@@ -251,11 +250,18 @@ def load_detector_params(path: str, *, depth: int = 101, num_anchors: int = 12,
     params)``, or of :func:`to_jax_detector_params`), or a reference
     PyTorch checkpoint (``.pth``, jwyang names, through
     ``utils/torch_import.py::import_detector_state_dict`` at ``depth`` and
-    ``num_anchors``). A directory (an Orbax checkpoint of the JAX package)
-    is refused by name: the card's machine has no orbax."""
+    ``num_anchors``), or a checkpoint directory of the port's detector
+    training (``scripts/train_detector.py``: its ``params``). Any other
+    directory (an Orbax checkpoint of the JAX package) is refused by name:
+    the card's machine has no orbax."""
     if os.path.isdir(path):
+        if os.path.isfile(os.path.join(path, "state.npz")):
+            return from_jax_detector_params(
+                load_params_npz(os.path.join(path, "state.npz"))["params"], device=device,
+                dtype=dtype)
         raise ValueError(f"{path} is a directory: Orbax detector checkpoints are not read by "
-                         "the port; pass a .npz of the detector tree or a reference .pth")
+                         "the port; pass a .npz of the detector tree, a reference .pth or "
+                         "a checkpoint directory of the port's detector training")
     if zipfile.is_zipfile(path):
         with zipfile.ZipFile(path) as z:
             is_npz = all(n.endswith(".npy") for n in z.namelist())

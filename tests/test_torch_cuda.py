@@ -951,3 +951,98 @@ def test_serve_gpu_matches_cpu_from_shared_detections(dev):
     best_c, lp_c = serve_cpu.caption(cap_cpu, sel_cpu, sentiment, tables_c, n_c, noise)
     assert torch.equal(best_g.cpu(), best_c)
     torch.testing.assert_close(lp_g.cpu(), lp_c, rtol=1e-5, atol=0)
+
+
+# The RoIAlign backward kernel adds each bin's share with f32 atomics, in an
+# order that changes from run to run, and merges samples that share a
+# pixel before weighting: a few ulps of the largest gradient apart from
+# autograd of the plain version in f32. In bf16 both round their f32 sums
+# once, so neighbours one bf16 ulp (2^-8 of the largest) apart.
+ROI_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _train_rois(gen, dev, B, H, W, per_image):
+    """RoIs as proposal_target emits them: image-major, per_image an image,
+    boxes over the image (overlapping heavily) and some padding rows."""
+    R = B * per_image
+    ctr = torch.rand(R, 2, generator=gen, device=dev) * torch.tensor([16.0 * W, 16.0 * H],
+                                                                    device=dev)
+    wh = torch.rand(R, 2, generator=gen, device=dev) * 300.0 + 8.0
+    b = torch.arange(B, device=dev).repeat_interleave(per_image).float()[:, None]
+    rois = torch.cat([b, ctr - wh / 2, ctr + wh / 2], dim=1)
+    rois[per_image - 3::per_image, 1:] = 0.0
+    return rois.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,per_image", [(4, 40, 64, 1024, 128), (2, 9, 11, 13, 20)])
+def test_roi_align_backward_kernel(dev, dtype, B, H, W, C, per_image):
+    gen = torch.Generator(device=dev).manual_seed(C + B)
+    rois = _train_rois(gen, dev, B, H, W, per_image)
+    R = rois.shape[0]
+    grad_out = torch.randn(R, 7, 7, C, generator=gen, device=dev).to(dtype)
+    kw = dict(spatial_scale=1 / 16.0, pooled_height=7, pooled_width=7, sampling_ratio=2)
+    before = roi_align.backward_launches
+    got = roi_align.roi_align_backward(grad_out, rois, (B, H, W, C), **kw)
+    want = roi_align.roi_align_backward_plain(grad_out, rois, (B, H, W, C), dtype, **kw)
+    torch.cuda.synchronize()
+    assert roi_align.backward_launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, W, C)
+    scale = want.float().abs().max().item()
+    assert scale > 0
+    assert (got.float() - want.float()).abs().max().item() <= ROI_BWD_TOL[dtype] * scale
+
+    # through autograd: kernel C forward, this kernel backward
+    feats = torch.randn(B, H, W, C, generator=gen, device=dev).to(dtype).requires_grad_(True)
+    c_before = roi_align.launches
+    roi_align.roi_align(feats, rois, **kw).backward(grad_out)
+    torch.cuda.synchronize()
+    assert roi_align.launches == c_before + 1 and roi_align.backward_launches == before + 2
+    assert (feats.grad.float() - want.float()).abs().max().item() <= \
+        ROI_BWD_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+def test_nms_kernel_at_training_candidates(dev):
+    """The RPN's training call: 4 images × 12,000 candidates, 0.7, 2,000 kept."""
+    gen = torch.Generator(device=dev).manual_seed(12000)
+    boxes = _boxes(gen, dev, 4, 12000, extent=1000.0)
+    scores, order = torch.sort(torch.rand(4, 12000, generator=gen, device=dev), dim=1,
+                               descending=True)
+    boxes = torch.gather(boxes, 1, order[..., None].expand(4, 12000, 4)).contiguous()
+    got = nms.nms(boxes, scores, 0.7, max_out=2000, presorted=True)
+    want = nms.nms_plain(boxes, scores, 0.7, max_out=2000, presorted=True)
+    torch.cuda.synchronize()
+    assert got[0].shape == (4, 2000)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_detector_train_step_on_gpu(dev):
+    from style_seqcvae_tpu_torch.models.detector.rpn import RPNConfig
+    from style_seqcvae_tpu_torch.models.detector.targets import ProposalTargetConfig
+    from style_seqcvae_tpu_torch.scripts.train_detector import make_train_step
+    from style_seqcvae_tpu_torch.training.detector_optimizer import DetectorSGD
+
+    cfg = DetectorConfig(num_classes=6, num_att_classes=5, depth=50, anchor_scales=(2, 4, 8),
+                         rpn=RPNConfig(pre_nms_top_n=3000, post_nms_top_n=300),
+                         pt=ProposalTargetConfig(rois_per_image=32, num_classes=6))
+    params = init_detector(cfg, seed=0, device=dev)
+    opt = DetectorSGD(params, lr=1e-3, steps_per_epoch=10)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {"images": torch.randn(2, 192, 256, 3, generator=gen, device=dev) * 50,
+             "im_info": torch.tensor([[192.0, 256.0, 1.0]] * 2, device=dev),
+             "gt_boxes": torch.tensor([[[10.0, 20, 120, 150, 1], [60, 30, 200, 100, 3]]] * 2,
+                                      device=dev),
+             "num_gt": torch.tensor([2, 1], device=dev),
+             "gt_atts": (torch.rand(2, 2, 5, generator=gen, device=dev) > 0.5).float(),
+             "att_counts": torch.arange(1.0, 6.0, device=dev)}
+    counts = (roi_align.launches, roi_align.backward_launches, nms.launches)
+    for bf16 in (False, True):
+        step = make_train_step(cfg, opt, bf16)
+        losses = step(params, batch, gen)
+        assert all(torch.isfinite(v).item() for v in losses.values()), losses
+    assert (roi_align.launches - counts[0], roi_align.backward_launches - counts[1],
+            nms.launches - counts[2]) == (2, 2, 2)
+    assert all(torch.isfinite(p).all() for p in params["cls_score"].values())

@@ -56,7 +56,11 @@ def test_port_imports_no_jax():
                  "training.optimizer", "training.trainer", "training.checkpointing",
                  "utils.logging", "utils.torch_import", "models.baseline", "evaluation.eval",
                  "scripts.eval", "data.image_decode", "data.detection", "decoding.device_fsm",
-                 "serving", "scripts.extract_features", "scripts.serve", "scripts.load_test"):
+                 "serving", "scripts.extract_features", "scripts.serve", "scripts.load_test",
+                 "ops.roi_crop", "models.detector.vgg",
+                 "models.detector.targets", "training.detector_optimizer",
+                 "evaluation.detection_eval", "scripts.train_detector",
+                 "scripts.eval_detections"):
         assert "style_seqcvae_tpu_torch." + name in modules
     code = "\n".join([
         "import sys",
