@@ -171,10 +171,32 @@ one JSON line per phase as it goes:
 28. ``detector_variants``: VGG16 (no attribute head) with ``align``,
    ``pool`` and ``crop``: one inference forward on 2 images at config 5's
    608 x 928 and 2 training steps: ms and peak memory;
+29. ``multigpu``, data parallelism on the one card (single-card numbers, no
+   scaling): ``decode_split``, config 3's CBS decode through prehead and
+   fused on a mesh of the card listed twice (z split 2 x 10), in bf16 and
+   f32: each chunk bit-equal to the unsplit harness on its z slice of the
+   same noise, a one-device mesh bit-equal to the unsplit decode, A or B
+   held to its plain version on each chunk's 6,400-row inputs; against the
+   unsplit decode from the same seeded generator (a chunk's GEMMs of half
+   the rows round differently), f32 at least 98% of the captions identical
+   (their log-probs rtol 1e-5), in bf16 the median per-caption best
+   log-prob difference within a bound set from readings, each gate broken
+   by a control (the chunks' noise swapped); A or B 19 launches a chunk, counted over both
+   runs of each decode, and captions/s; ``ddp_captioner``, config 2's widths at a global batch of 150
+   as two ranks of 75 sharing the card over gloo (``parallel/
+   distributed_worker.py``), 3 steps f32, against one process on the 150
+   rows: loss and params within rtol 1e-5, ms a step per rank and the
+   gradient sum's ms; ``ddp_detector``, ResNet-101 at 2 + 2 images on 640 x
+   1024, 2 steps, against one process on the 4 images: every loss within
+   rtol 1e-3, C, its backward and D once a step on each rank; and
+   ``nccl_world1``, the train CLI as a one-rank NCCL group under
+   ``SSC_COORDINATOR``, its losses equal to the plain run's;
 
 then the ``{"kernels": [...]}`` summary, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Exits non-zero at once without a GPU.
+``python3 chip_smoke.py --split-readings SEED ...`` runs only the build and
+``decode_split`` at each seed (the readings its bounds are set from).
 """
 
 from __future__ import annotations
@@ -215,6 +237,7 @@ from style_seqcvae_tpu_torch.decoding.beam_search import greedy_decode
 from style_seqcvae_tpu_torch.decoding.cbs import constrained_beam_search
 from style_seqcvae_tpu_torch.decoding.cbs_fast import (
     SELECTIONS,
+    FSMTables,
     constrained_beam_search_fast,
     fsm_to_device,
     fsm_to_tables,
@@ -251,6 +274,9 @@ from style_seqcvae_tpu_torch.models.detector.rpn import (
     proposal_nms,
     rpn_heads,
 )
+from style_seqcvae_tpu_torch.parallel import distributed_worker as dworker
+from style_seqcvae_tpu_torch.parallel.mesh import make_mesh
+from style_seqcvae_tpu_torch.parallel.multihost import free_port
 from style_seqcvae_tpu_torch.ops.kernels import (
     _build,
     nms,
@@ -2998,6 +3024,355 @@ def phase_detector_variants(dev: torch.device) -> dict:
     return launches
 
 
+# data parallelism (ROADMAP A10) on the one card: config 3's decode grid
+# split over the card listed twice, and two ranks sharing the card over gloo
+# (NCCL refuses two ranks on one GPU), each held to one process on the whole
+# batch; then the train CLI as a one-rank NCCL group. Single-card numbers:
+# no scaling is measured or implied.
+SPLIT_SEED = 11
+# the search step (1 .. STEPS - 1) whose kernel inputs each chunk's check reads
+SPLIT_PROBE_STEP = 10
+# How far the split may move from the unsplit decode, each bound set from
+# readings at seeds 11-16 with both selections (PERF.md, section 6), and each
+# broken by the control (the split fed its chunks' noise swapped): in f32 at
+# least SPLIT_F32_IDENTICAL of the captions identical, their log-probs
+# within rtol 1e-5 (sound 0.994-1.0 identical, within 7.4e-7; control 0.0);
+# in bf16, where most captions flip, the median per-caption |best log-prob
+# difference| at most SPLIT_BF16_MEDIAN_LP_ATOL nats (sound 0.39-0.75,
+# control 1.45-1.67; the largest differences overlap: sound up to 6.7,
+# control 6.3-11.3, so no per-caption bound separates them)
+SPLIT_F32_IDENTICAL = 0.98
+SPLIT_BF16_MEDIAN_LP_ATOL = 1.0
+DDP_TIMEOUT = 300.0
+DDP_CAPTIONER_RTOL = 1e-5
+DDP_DETECTOR_RTOL = 1e-3
+NCCL_ITERS = 4
+
+
+@contextlib.contextmanager
+def chunk_kernel_inputs(step: int):
+    """A spy around the search's calls of A and B: yields, per kernel, a
+    copy of the arguments of each chunk's call at search step ``step``
+    (STEPS - 1 calls a chunk, the chunks in turn); the kernels still run."""
+    real = {"vocab_topk_lse": cbs_fast.matmul_top_k_with_lse,
+            "topk_lse": cbs_fast.top_k_with_lse}
+    got = {name: [] for name in real}
+    seen = dict.fromkeys(real, 0)
+
+    def spy(name):
+        def call(*args):
+            if seen[name] % (STEPS - 1) == step - 1:
+                got[name].append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+            seen[name] += 1
+            return real[name](*args)
+        return call
+
+    cbs_fast.matmul_top_k_with_lse = spy("vocab_topk_lse")
+    cbs_fast.top_k_with_lse = spy("topk_lse")
+    try:
+        yield got
+    finally:
+        cbs_fast.matmul_top_k_with_lse = real["vocab_topk_lse"]
+        cbs_fast.top_k_with_lse = real["topk_lse"]
+
+
+def lp_diff_quantiles(lp: torch.Tensor, lp0: torch.Tensor) -> dict:
+    """Quantiles of the per-caption |best log-prob difference| in nats."""
+    d = (lp.float() - lp0.float()).abs().flatten()
+    qs = torch.quantile(d, torch.tensor([0.5, 0.9, 0.99, 1.0], device=d.device)).tolist()
+    return dict(zip(("p50", "p90", "p99", "max"), qs))
+
+
+def split_reading(dtype: str, best, lp, best0, lp0) -> dict:
+    """A split decode's (best, lp) against the unsplit (best0, lp0): the
+    identical share, the log-probs' largest relative difference where the
+    captions are identical, the quantiles of the per-caption difference, and
+    whether the dtype's gate holds."""
+    same = (best == best0).all(dim=-1)
+    share = same.float().mean().item()
+    rel = (lp - lp0).abs() / lp0.abs().clamp_min(1.0)
+    lp_err = rel[same].max().item() if same.any() else None
+    diffs = lp_diff_quantiles(lp, lp0)
+    if dtype == "f32":
+        ok = share >= SPLIT_F32_IDENTICAL and lp_err is not None and lp_err <= 1e-5
+    else:
+        ok = diffs["p50"] <= SPLIT_BF16_MEDIAN_LP_ATOL
+    return {"identical_captions": share, "lp_max_rel_err_identical": lp_err,
+            "lp_abs_diff": diffs, "gate_holds": ok}
+
+
+def phase_decode_split(dev: torch.device, decode_state, seed: int = SPLIT_SEED) -> dict:
+    """Config 3's CBS decode through prehead and fused on a mesh of the card
+    listed twice: z splits 2 x 10, the chunks run in turn in the card's
+    worker thread. Held three ways:
+
+    * each chunk, exactly: the split decode must equal, bit for bit, the
+      unsplit harness run on each chunk's z slice of the same noise (the
+      same shapes through the same kernels), so a chunk fed another chunk's
+      noise, rows or tables fails; a one-device mesh (one chunk of the whole
+      grid) must equal the unsplit decode exactly;
+    * each kernel at the chunk's shape: A or B on the 6,400 rows of each
+      chunk's call at search step SPLIT_PROBE_STEP, against its plain
+      version under TOL;
+    * against the unsplit decode: a chunk's GEMMs have half the rows, and
+      cuBLAS picks its kernels by shape, so near ties of the random-weight
+      model's flat distributions flip. In f32 at least SPLIT_F32_IDENTICAL
+      of the captions must be identical, their log-probs within rtol 1e-5;
+      in bf16 the median per-caption |best log-prob difference| at most
+      SPLIT_BF16_MEDIAN_LP_ATOL; a control (the split fed its chunks'
+      noise swapped) must fail its dtype's gate.
+
+    A or B launch STEPS - 1 times a chunk. The counters are reset before
+    each decode's first run and read after its second (timed) one. Returns
+    the launches of every split, one-chunk and unsplit run."""
+    harness, sentiment, tables = decode_state
+    cfg = harness.cfg
+    feats, _, _ = decode_setup(cfg, BATCH, N_Z, BOXES, seed=0)
+    mesh = make_mesh(2, 1, [dev, dev])
+    half = N_Z // 2
+    halves = [slice(0, half), slice(half, N_Z)]
+    kernel_of = {"prehead": "vocab_topk_lse", "fused": "topk_lse"}
+    launches = {kname: 0 for kname in kernel_of.values()}
+    for dtype, plain in (("bf16", harness),
+                         ("f32", DecodeHarness(init_captioner(cfg, seed=0, device=dev), cfg,
+                                               device=dev))):
+        split = DecodeHarness(plain.params, cfg, mesh=mesh)
+        whole = DecodeHarness(plain.params, cfg, mesh=make_mesh(1, 1, [dev]))
+        # the noise the split draws from the seeded generator (the unsplit order)
+        noise = split._drawn_noise(torch.Generator(device=dev).manual_seed(seed), N_Z,
+                                   BATCH, (1, 1), (tables.default_dest.shape[2], BEAM),
+                                   torch.float32)[0]
+        swapped = torch.cat([noise[halves[1]], noise[halves[0]]])
+        for selection, kernel in kernel_of.items():
+            def decode(h, src=None, tbl=tables, n_z=N_Z):
+                if src is None:
+                    src = torch.Generator(device=dev).manual_seed(seed)
+                return h.decode_cbs(feats, sentiment, None, tbl, N_CONSTRAINTS, src, n_z,
+                                    selection=selection)
+
+            out, probe = {}, {}
+            for name, h, chunks in (("unsplit", plain, 1), ("split", split, 2),
+                                    ("one_chunk", whole, 1)):
+                reset_selection_counts()
+                spy = (chunk_kernel_inputs(SPLIT_PROBE_STEP) if name == "split"
+                       else contextlib.nullcontext({}))
+                with spy as got:
+                    best, lp = decode(h)
+                probe.update(got)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                decode(h)
+                torch.cuda.synchronize()
+                seconds = time.time() - t0
+                n = selection_counts()[kernel]
+                launches[kernel] += n
+                out[name] = (best, lp, n, seconds, 2 * chunks * (STEPS - 1))
+            (b0, lp0, _, s0, _), (b1, lp1, _, s1, _) = out["unsplit"], out["split"]
+            b2, lp2 = out["one_chunk"][:2]
+            # not counted: the references and the control
+            refs = [decode(plain, noise[zs], FSMTables(*[t[zs] for t in tables]), half)
+                    for zs in halves]
+            chunks_exact = bool(torch.equal(torch.cat([r[0] for r in refs]), b1)
+                                and torch.equal(torch.cat([r[1] for r in refs]), lp1))
+            one_chunk_exact = bool(torch.equal(b2, b0) and torch.equal(lp2, lp0))
+            reading = split_reading(dtype, b1, lp1, b0, lp0)
+            control = split_reading(dtype, *decode(split, swapped), b0, lp0)
+            emit({"phase": "multigpu", "part": "decode_split", "dtype": dtype,
+                  "selection": selection, "mesh": [str(d) for d in mesh.devices],
+                  "split": [half, N_Z - half], "chunks_exact": chunks_exact,
+                  "one_chunk_exact": one_chunk_exact, **reading,
+                  "mean_best_lp": [lp0.mean().item(), lp1.mean().item()],
+                  "control": control,
+                  "gate": ({"identical_min": SPLIT_F32_IDENTICAL, "lp_rtol": 1e-5}
+                           if dtype == "f32" else {"p50_atol": SPLIT_BF16_MEDIAN_LP_ATOL}),
+                  "launches": {name: o[2] for name, o in out.items()},
+                  "launches_expected": {name: o[4] for name, o in out.items()},
+                  "unsplit_s": s0, "split_s": s1, "split_captions_per_s": BATCH * N_Z / s1,
+                  "unsplit_captions_per_s": BATCH * N_Z / s0,
+                  "note": "one card listed twice: the chunks run in turn; no scaling"})
+            if not chunks_exact:
+                fail(f"decode_split ({dtype}, {selection}): the split differs from the "
+                     f"unsplit harness on each chunk's z slice of the same noise")
+            if not one_chunk_exact:
+                fail(f"decode_split ({dtype}, {selection}): a one-chunk split differs from "
+                     f"the unsplit decode")
+            if not reading["gate_holds"] or control["gate_holds"]:
+                fail(f"decode_split ({dtype}, {selection}): the split {reading} and the "
+                     f"control {control} against the unsplit decode")
+            wrong = {name: (o[2], o[4]) for name, o in out.items() if o[2] != o[4]}
+            if wrong:
+                fail(f"decode_split ({dtype}, {selection}): {kernel} launches "
+                     f"(counted, expected) {wrong}")
+            # each kernel on its chunks' own inputs at the probed step
+            if len(probe[kernel]) != 2:
+                fail(f"decode_split ({dtype}, {selection}): {len(probe[kernel])} chunk "
+                     f"inputs of {kernel} caught, expected 2")
+            for i, args in enumerate(probe[kernel]):
+                case = (vocab_case(args[0], args[1], args[2]) if kernel == "vocab_topk_lse"
+                        else topk_case(args[0], args[1]))
+                rows = args[0].shape[0]
+                if rows != BATCH * half * STATES * BEAM:
+                    fail(f"decode_split: chunk {i}'s {kernel} input has {rows} rows")
+                kernel_row(kernel, case, args[0].dtype,
+                           {"rows": rows, "vocab": V, "k": args[-1],
+                            "width": args[0].shape[1] if kernel == "vocab_topk_lse" else None,
+                            "part": "decode_split_chunk", "chunk": i,
+                            "search_step": SPLIT_PROBE_STEP, "selection": selection})
+            probe.clear()
+    return launches
+
+
+def ddp_rows(ranks: list, key: str) -> None:
+    """Two ranks, agreeing on the global ``key``."""
+    for r in ranks:
+        if r["process_count"] != 2 or r[key] != ranks[0][key]:
+            fail(f"ddp: the ranks disagree on {key} or are not two: {ranks}")
+
+
+def phase_ddp_captioner(dev: torch.device) -> dict:
+    """Config 2's widths, a global batch of 150 (75 a rank), f32, 3 steps:
+    two ranks on the card over gloo against one process on the 150 rows
+    (the same init, batch and z-noise: each rank keeps its rows of the
+    global draw): loss and the params' squared norm within
+    DDP_CAPTIONER_RTOL; ms a step per rank and the gradient sum's ms."""
+    spec = dworker.captioner_spec("full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = dworker.launch_two_process_run({"captioner": spec}, device=str(dev),
+                                           backend="gloo", timeout=DDP_TIMEOUT)
+    launch_s = time.time() - t0
+    one = dworker.run_payloads({"captioner": spec}, dev)
+    ddp_rows(ranks, "metrics")
+    loss_err = max(abs(r["loss"] - one["loss"]) / abs(one["loss"]) for r in ranks)
+    norm_err = abs(ranks[0]["param_norm_sq"] - one["param_norm_sq"]) / one["param_norm_sq"]
+    emit({"phase": "multigpu", "part": "ddp_captioner", "backend": "gloo",
+          "devices": [r["device"] for r in ranks], "global_batch": spec["batch"],
+          "per_rank": spec["batch"] // 2, "steps": spec["steps"],
+          "losses_ranks": [m["loss"] for m in ranks[0]["metrics"]],
+          "losses_one": [m["loss"] for m in one["metrics"]], "loss_rel_err": loss_err,
+          "param_norm_sq_rel_err": norm_err, "rtol": DDP_CAPTIONER_RTOL,
+          "step_ms_ranks": [r["step_ms"] for r in ranks], "step_ms_one": one["step_ms"],
+          "allreduce_ms_ranks": [r["allreduce_ms"] for r in ranks],
+          "launch_wall_s": launch_s, "launches_ranks": [r["launches"] for r in ranks],
+          "note": "two ranks share one card: no scaling"})
+    if loss_err > DDP_CAPTIONER_RTOL or norm_err > DDP_CAPTIONER_RTOL:
+        fail(f"ddp_captioner: two ranks off one process by {loss_err:.3g} (loss), "
+             f"{norm_err:.3g} (params)")
+    if any(any(r["launches"].values()) for r in ranks):
+        fail(f"ddp_captioner: a kernel ran in a training step: {ranks[0]['launches']}")
+    return {}
+
+
+def phase_ddp_detector(dev: torch.device) -> dict:
+    """ResNet-101 (81 classes, 196 attributes, the DET defaults), 2 steps at
+    2 + 2 images on 640 x 1024, f32: two ranks on the card over gloo
+    against one process on the 4 images with the same draws; every loss of
+    every step within DDP_DETECTOR_RTOL (the backward's f32 atomics are
+    unordered, and the backbone's convolutions at 2 and 4 images may sum in
+    other orders); C, its backward and D launch once a step on each rank
+    and in the one process. Returns the launches that the ranks report and
+    the one process's, as counted."""
+    spec = dworker.detector_spec("full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = dworker.launch_two_process_run({"detector": spec}, device=str(dev),
+                                           backend="gloo", timeout=DDP_TIMEOUT)
+    launch_s = time.time() - t0
+    reset_kernel_counts()
+    reset_detector_counts()
+    one = dworker.run_payloads({"detector": spec}, dev)
+    ddp_rows(ranks, "det_losses")
+    errs = {name: max(abs(r["det_losses"][s][name] - one["det_losses"][s][name])
+                      / max(abs(one["det_losses"][s][name]), 1e-6)
+                      for r in ranks for s in range(spec["steps"]))
+            for name in one["det_losses"][0]}
+    want = {"roi_align": spec["steps"], "roi_align_backward": spec["steps"],
+            "nms": spec["steps"], "vocab_topk_lse": 0, "topk_lse": 0}
+    emit({"phase": "multigpu", "part": "ddp_detector", "backend": "gloo",
+          "devices": [r["device"] for r in ranks], "images": [2, 2],
+          "canvas": spec["image_hw"], "steps": spec["steps"],
+          "losses_ranks": ranks[0]["det_losses"], "losses_one": one["det_losses"],
+          "loss_rel_err": errs, "rtol": DDP_DETECTOR_RTOL,
+          "step_ms_ranks": [r["det_step_ms"] for r in ranks], "step_ms_one": one["det_step_ms"],
+          "launches_ranks": [r["launches"] for r in ranks], "launches_one": one["launches"],
+          "launch_wall_s": launch_s, "note": "two ranks share one card: no scaling"})
+    if max(errs.values()) > DDP_DETECTOR_RTOL:
+        fail(f"ddp_detector: two ranks off one process: {errs}")
+    for r in ranks + [one]:
+        if r["launches"] != want:
+            fail(f"ddp_detector: launches {r['launches']}, expected {want} a process")
+    runs = ranks + [one]
+    return {"roi_align": sum(r["launches"]["roi_align"] for r in runs),
+            "roi_align_backward": sum(r["launches"]["roi_align_backward"] for r in runs),
+            "nms_rpn": sum(r["launches"]["nms"] for r in runs)}
+
+
+def phase_nccl_world1(dev: torch.device) -> None:
+    """The train CLI (config 2's published widths, train_cli's world) as a
+    one-rank NCCL process group under SSC_COORDINATOR, a subprocess: its
+    losses must equal the plain run's, step for step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cfg = write_train_cli_world(root / "world")
+        plain = train_cli_run(cfg, root / "plain", ["--max-iterations", str(NCCL_ITERS)],
+                              every=NCCL_ITERS)
+        env = dict(os.environ, SSC_COORDINATOR=f"localhost:{free_port()}",
+                   SSC_NUM_PROCESSES="1", SSC_PROCESS_ID="0")
+        t0 = time.time()
+        res = subprocess.run([sys.executable, "-m", "style_seqcvae_tpu_torch.scripts.train",
+                              "--config", str(cfg), "--serialization-dir", str(root / "nccl"),
+                              "--checkpoint-every", str(NCCL_ITERS),
+                              "--max-iterations", str(NCCL_ITERS)],
+                             env=env, capture_output=True, text=True, timeout=DDP_TIMEOUT)
+        wall = time.time() - t0
+        losses = {name: [json.loads(line)["loss"] for line in
+                         (root / name / "metrics.jsonl").read_text().splitlines()]
+                  for name in ("plain", "nccl") if (root / name / "metrics.jsonl").exists()}
+        emit({"phase": "multigpu", "part": "nccl_world1", "backend": "nccl",
+              "iterations": NCCL_ITERS, "rc": res.returncode, "losses": losses,
+              "plain_wall_s": plain["wall_s"], "nccl_wall_s": wall})
+        if res.returncode != 0:
+            fail(f"nccl_world1: the train CLI failed:\n{res.stdout[-2000:]}{res.stderr[-2000:]}")
+        if losses.get("nccl") != losses.get("plain") or len(losses["plain"]) != NCCL_ITERS:
+            fail(f"nccl_world1: losses differ from the plain run: {losses}")
+
+
+def phase_multigpu(dev: torch.device, decode_state) -> dict:
+    """``decode_split``, ``ddp_captioner``, ``ddp_detector`` and
+    ``nccl_world1``; returns the launches of the split decodes and the
+    detector's ranks."""
+    launches = phase_decode_split(dev, decode_state)
+    phase_ddp_captioner(dev)
+    launches.update(phase_ddp_detector(dev))
+    phase_nccl_world1(dev)
+    return launches
+
+
+def print_card() -> None:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+
+def split_readings(dev: torch.device, seeds) -> int:
+    """``python3 chip_smoke.py --split-readings SEED ...``: the build, then
+    ``decode_split`` at each seed, alone: the readings its bounds are set
+    from, then the card's line (no other phase, no summary lines)."""
+    phase_build()
+    cfg = decode_cfg()
+    params = init_captioner(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    _, sentiment, tables = decode_setup(cfg, BATCH, N_Z, BOXES, seed=0)
+    state = (DecodeHarness(params, cfg, device=dev), sentiment, tables)
+    for seed in seeds:
+        emit({"phase": "split_readings", "seed": seed})
+        phase_decode_split(dev, state, seed)
+    print_card()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3006,6 +3381,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    if sys.argv[1:2] == ["--split-readings"]:
+        return split_readings(dev, [int(a) for a in sys.argv[2:]] or [SPLIT_SEED])
 
     phase_build()
     # selection width from the decode's own padded tables: pnbs + E
@@ -3059,6 +3436,10 @@ def main() -> int:
     launches["roi_align_backward"] = 0
     new_launches += [phase_detector_train(dev), phase_train_detector_cli(dev),
                      phase_detector_variants(dev)]
+    # data parallelism after every earlier path, so that those run as
+    # before: the split decodes' and the detector ranks' launches add to
+    # A's, B's, C's, the backward's and D's RPN counts
+    new_launches.append(phase_multigpu(dev, decode_state))
     for counts in new_launches:
         for name, n in counts.items():
             launches[name] += n
@@ -3076,9 +3457,7 @@ def main() -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     emit({"kernels": kernels})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print_card()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -6,11 +6,27 @@ The JAX harness vmaps the search over z. Here z is a batch dimension written
 out: the search runs on B·n_z rows ordered image-major (row b·n_z + z), so a
 view turns them into the (B, n_z, ...) grid the step expects, and the image
 features stay (B, N, F), never replicated per z or beam.
+
+With a ``DataMesh`` of several devices (``parallel/mesh.py``, the JAX
+harness's ``mesh``) the grid splits over them as ``decode_grid_split``
+says: along z when the device count divides n_z, else along the batch,
+else not at all. Each chunk decodes on its own device with its own copy of
+the params, one thread per device (each inside ``torch.cuda.device`` of
+its device, since the kernel wrappers launch on the current stream), and
+the chunks' results are concatenated on the first device. A noise stack is
+sliced along its z or batch axis. A ``torch.Generator`` first draws, on its
+device, every tensor the unsplit decode would draw from it, in the same
+order, shapes and dtypes (:meth:`DecodeHarness._drawn_noise`), so that a
+split decode runs on the unsplit noise: on the CPU it gives the unsplit
+tokens; on the card a chunk's GEMMs of fewer rows may round differently
+(cuBLAS picks its kernels by shape), which moves near ties.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,7 +38,7 @@ from style_seqcvae_tpu_torch.decoding.cbs_fast import (
     constrained_beam_search_fast,
     fsm_to_device,
 )
-from style_seqcvae_tpu_torch.decoding.samplers import gumbel_beam_search, sample_decode
+from style_seqcvae_tpu_torch.decoding.samplers import _gumbel, gumbel_beam_search, sample_decode
 from style_seqcvae_tpu_torch.decoding.select import select_best_beam_simple
 from style_seqcvae_tpu_torch.device import as_tensor, resolve_device
 from style_seqcvae_tpu_torch.models.baseline import init_baseline_state, make_baseline_step_fn
@@ -32,6 +48,7 @@ from style_seqcvae_tpu_torch.models.captioner import (
     make_optimized_step_fn,
 )
 from style_seqcvae_tpu_torch.models.updown_cell import init_cell_state
+from style_seqcvae_tpu_torch.parallel.mesh import DataMesh, decode_grid_split, replicate
 from style_seqcvae_tpu_torch.weights import FAMILIES, param_family
 
 
@@ -77,15 +94,49 @@ def pad_tables(tables: List[FSMTables], n_z: int) -> FSMTables:
     return pad_tables_batch([tables], n_z)
 
 
+def _stacked_tables(tables, n_z: int, B: int) -> FSMTables:
+    """``decode_cbs``'s ``tables`` argument as one (n_z, B, S[, E]) stack."""
+    if isinstance(tables, FSMTables):
+        return tables
+    if tables and isinstance(tables[0], FSMTables):
+        if B != 1:
+            raise ValueError(f"a per-z List[FSMTables] is for one image, got B={B}; "
+                             "pass per-image lists for a batch")
+        return pad_tables(list(tables), n_z)
+    return pad_tables_batch(tables, n_z)
+
+
+def _constraint_counts(num_constraints, B: int):
+    """(B,) constraint counts: a shorter argument's first entry holds for
+    every image; a tensor stays where it lies, anything else is numpy."""
+    if torch.is_tensor(num_constraints):
+        nc = num_constraints.reshape(-1)
+    else:
+        nc = np.asarray(num_constraints).reshape(-1)
+    return nc[:1].repeat(B) if nc.shape[0] < B else nc[:B]
+
+
+def _rows(x, rows: slice):
+    return None if x is None else x[rows]
+
+
 class DecodeHarness:
     def __init__(self, params: Dict[str, Any], cfg: CaptionerConfig,
-                 device: Optional[Union[str, torch.device]] = None, family: str = "cvae"):
+                 device: Optional[Union[str, torch.device]] = None, family: str = "cvae",
+                 mesh: Optional[DataMesh] = None):
         """``params`` must already lie on ``device`` (``init_captioner``,
         ``init_baseline`` or ``from_jax_params`` with the same device).
         ``family``: ``"cvae"`` (Style-SeqCVAE, z-sampled) or ``"baseline"``
         (the non-variational UpDown, deterministic: its step ignores the
         z-noise, so callers pass n_z = 1 unless a sampler draws); the
-        parameters must be that family's."""
+        parameters must be that family's. ``mesh``: one process's decode
+        devices, over which every decode splits its grid (``device`` is
+        then the first of them, where the results land)."""
+        if mesh is not None:
+            if mesh.world_size > 1:
+                raise ValueError("a decode mesh holds one process's devices; in a process "
+                                 "group each rank decodes with its own harness")
+            device = mesh.device
         self.device = resolve_device(device)
         if family not in FAMILIES:
             raise ValueError(f"family must be one of {FAMILIES}, got {family!r}")
@@ -97,6 +148,11 @@ class DecodeHarness:
         self.params = params
         self.cfg = cfg
         self.family = family
+        self.mesh = mesh
+        self._chunk_harness: Dict[torch.device, "DecodeHarness"] = {}
+        if mesh is not None:
+            for d, p in zip(mesh.devices, replicate(mesh, params)):
+                self._chunk_harness.setdefault(d, DecodeHarness(p, cfg, d, family))
 
     def _init_state(self, rows: int, dtype: torch.dtype):
         init = init_baseline_state if self.family == "baseline" else init_cell_state
@@ -159,6 +215,94 @@ class DecodeHarness:
         """(B·n_z, ...) image-major rows → (n_z, B, ...)."""
         return t.reshape((B, n_z) + tuple(t.shape[1:])).transpose(0, 1)
 
+    # ------------------------------------------------------------ the split
+
+    def _z_dtype(self, obj_att_embeds) -> torch.dtype:
+        """The dtype the cvae step draws its z-noise in: the prior mean's,
+        f32, or in mode 2 the attribute embeddings' (the params' dtype)."""
+        if self.cfg.sentiment_vae == 2 and obj_att_embeds is not None:
+            return self.params["embedding"].dtype
+        return torch.float32
+
+    def _drawn_noise(self, gen: torch.Generator, n_z: int, B: int, inner0: Tuple[int, ...],
+                     inner: Tuple[int, ...], z_dtype: torch.dtype,
+                     gumbel: Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]] = None):
+        """What the unsplit decode of a (B, n_z) grid draws from ``gen``, in
+        the JAX layout: at each step t the cvae step's z-noise over its grid
+        (B, n_z, *inner0 at t = 0 else *inner, z) in ``z_dtype``, then, for
+        the samplers, their Gumbel noise over (B·n_z, *gumbel[0 or 1], V)
+        from f32 exponentials. Returns (z-noise (n_z, T, B, *inner, z),
+        Gumbel noise (n_z, T, B, *gumbel[1], V) or None); the first step's
+        draws fill each stack's leading slots. The baseline draws no z-noise
+        (its z-stack is zeros over a grid of ones)."""
+        cfg, dev = self.cfg, gen.device
+        T, V = cfg.max_caption_length, cfg.vocab_size
+        cvae = self.family == "cvae"
+        zs = torch.zeros((n_z, T, B) + (inner if cvae else (1,) * len(inner))
+                         + (cfg.z_space,), dtype=z_dtype, device=dev)
+        gs = (None if gumbel is None
+              else torch.zeros((n_z, T, B) + gumbel[1] + (V,), device=dev))
+
+        def put(stack, t, draw, dims):
+            stack[(slice(None), t, slice(None)) + tuple(slice(0, k) for k in dims)] = (
+                draw.reshape((B, n_z) + tuple(draw.shape[-1 - len(dims):])).transpose(0, 1))
+
+        for t in range(T):
+            if cvae:
+                dims = inner0 if t == 0 else inner
+                put(zs, t, torch.randn((B, n_z) + dims + (cfg.z_space,), generator=gen,
+                                       device=dev, dtype=z_dtype), dims)
+            if gumbel is not None:
+                dims = gumbel[0] if t == 0 else gumbel[1]
+                put(gs, t, _gumbel(gen, t, (B * n_z,) + dims + (V,), torch.float32, dev), dims)
+        return zs, gs
+
+    def _split(self, n_z: int, B: int, run: Callable) -> Tuple[torch.Tensor, ...]:
+        """``run(harness, zs, bs, n_z')`` decodes the grid's chunk (z slice
+        ``zs``, image slice ``bs``, n_z' z-samples) on ``harness``'s device
+        and returns (n_z', B', ...) tensors. The chunks of the mesh's grid
+        split run in a pool of one worker thread per distinct device (the
+        chunks of a device listed twice in turn, in its thread; a mesh of
+        one device too) and are concatenated along the split axis on
+        ``self.device``."""
+        split = decode_grid_split(self.mesh, n_z, B)
+        full = slice(None)
+        chunks = [((sl, full) if split.axis == "z" else (full, sl), d)
+                  for sl, d in split.chunks]
+        by_device: Dict[torch.device, List[int]] = {}
+        for i, (_, d) in enumerate(chunks):
+            by_device.setdefault(d, []).append(i)
+
+        def work(d: torch.device) -> Dict[int, Tuple[torch.Tensor, ...]]:
+            on_device = (torch.cuda.device(d) if d.type == "cuda"
+                         else contextlib.nullcontext())
+            with on_device:
+                return {i: run(self._chunk_harness[d], *chunks[i][0],
+                               len(range(n_z)[chunks[i][0][0]]))
+                        for i in by_device[d]}
+
+        results: Dict[int, Tuple[torch.Tensor, ...]] = {}
+        with ThreadPoolExecutor(len(by_device)) as pool:
+            for fut in [pool.submit(work, d) for d in by_device]:
+                results.update(fut.result())
+        dim = 1 if split.axis == "batch" else 0
+        return tuple(torch.cat([results[i][k].to(self.device) for i in range(len(chunks))],
+                               dim=dim) for k in range(len(results[0])))
+
+    def _split_cbs(self, feats, sentiment, obj_att_embeds, tables, num_constraints, noise,
+                   n_z: int, selection: str, return_all: bool):
+        B = feats.shape[0]
+        stacked = _stacked_tables(tables, n_z, B)
+        nc = _constraint_counts(num_constraints, B)
+        if isinstance(noise, torch.Generator):
+            S = stacked.default_dest.shape[2]
+            noise = self._drawn_noise(noise, n_z, B, (1, 1), (S, self.cfg.beam_size),
+                                      self._z_dtype(obj_att_embeds))[0]
+        return self._split(n_z, B, lambda h, zs, bs, nz: h.decode_cbs(
+            feats[bs], _rows(sentiment, bs), _rows(obj_att_embeds, bs),
+            FSMTables(*[t[zs][:, bs] for t in stacked]), nc[bs], noise[zs][:, :, bs], nz,
+            selection=selection, return_all=return_all))
+
     @torch.inference_mode()
     def decode_cbs(self, feats, sentiment, obj_att_embeds, tables, num_constraints,
                    noise: Union[np.ndarray, torch.Tensor, torch.Generator], n_z: int,
@@ -187,29 +331,20 @@ class DecodeHarness:
         if self.family == "baseline" and selection != "logprob":
             raise ValueError(f"the baseline family decodes CBS through selection "
                              f"'logprob' only, got {selection!r}")
+        if self.mesh is not None:
+            return self._split_cbs(feats, sentiment, obj_att_embeds, tables, num_constraints,
+                                   noise, n_z, selection, return_all)
         cfg, dev = self.cfg, self.device
         feats, sentiment, obj_att_embeds = self._inputs(feats, sentiment, obj_att_embeds)
         B = feats.shape[0]
-        if isinstance(tables, FSMTables):
-            stacked = tables
-        elif tables and isinstance(tables[0], FSMTables):
-            if B != 1:
-                raise ValueError(f"a per-z List[FSMTables] is for one image, got B={B}; "
-                                 "pass per-image lists for a batch")
-            stacked = pad_tables(list(tables), n_z)
-        else:
-            stacked = pad_tables_batch(tables, n_z)
-        fsm = fsm_to_device(stacked, dev)
+        fsm = fsm_to_device(_stacked_tables(tables, n_z, B), dev)
         Z = fsm.default_dest.shape[0]
         if Z != n_z or fsm.default_dest.shape[1] != B:
             raise ValueError(f"tables are {tuple(fsm.default_dest.shape[:2])}, want ({n_z}, {B})")
         # (Z, B, ...) → image-major rows (B·Z, ...)
         fsm = FSMTables(*[t.transpose(0, 1).reshape((B * Z,) + tuple(t.shape[2:])) for t in fsm])
-        if torch.is_tensor(num_constraints):          # stays on the device
-            nc = num_constraints.to(dev).reshape(-1)
-        else:
-            nc = torch.as_tensor(np.asarray(num_constraints).reshape(-1), device=dev)
-        nc = nc[:1].expand(B) if nc.numel() < B else nc[:B]
+        nc = _constraint_counts(num_constraints, B)
+        nc = nc.to(dev) if torch.is_tensor(nc) else torch.as_tensor(nc, device=dev)
 
         prehead = selection == "prehead"
         grid_step = self._grid_step(feats, sentiment, obj_att_embeds, Z,
@@ -244,6 +379,14 @@ class DecodeHarness:
 
         Returns the top beam of each (z, image): (seqs (n_z, B, T),
         lp (n_z, B))."""
+        if self.mesh is not None:
+            B = feats.shape[0]
+            if isinstance(noise, torch.Generator):
+                noise = self._drawn_noise(noise, n_z, B, (1,), (self.cfg.beam_size,),
+                                          self._z_dtype(obj_att_embeds))[0]
+            return self._split(n_z, B, lambda h, zs, bs, nz: h.decode_beam(
+                feats[bs], _rows(sentiment, bs), _rows(obj_att_embeds, bs),
+                noise[zs][:, :, bs], nz))
         cfg, dev = self.cfg, self.device
         feats, sentiment, obj_att_embeds = self._inputs(feats, sentiment, obj_att_embeds)
         B = feats.shape[0]
@@ -276,6 +419,18 @@ class DecodeHarness:
         Returns (n_z, B, T) token ids."""
         if method not in SAMPLERS:
             raise ValueError(f"method must be one of {SAMPLERS}, got {method!r}")
+        if self.mesh is not None:
+            B = feats.shape[0]
+            if isinstance(noise, torch.Generator):
+                K = self.cfg.beam_size
+                inner, gumbel = (((K,), ((1,), (K,))) if method == "gumbel"
+                                 else ((1,), ((), ())))
+                noise = self._drawn_noise(noise, n_z, B, (1,), inner,
+                                          self._z_dtype(obj_att_embeds), gumbel)
+            kw = dict(top_k=top_k, top_p=top_p, temperature=temperature)
+            return self._split(n_z, B, lambda h, zs, bs, nz: (h.decode_sample(
+                feats[bs], _rows(sentiment, bs), _rows(obj_att_embeds, bs),
+                tuple(x[zs][:, :, bs] for x in noise), nz, method, **kw),))[0]
         cfg, dev = self.cfg, self.device
         feats, sentiment, obj_att_embeds = self._inputs(feats, sentiment, obj_att_embeds)
         B = feats.shape[0]

@@ -35,6 +35,7 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from style_seqcvae_tpu_torch.device import resolve_device
 from style_seqcvae_tpu_torch.models.detector import resnet, vgg
@@ -56,6 +57,7 @@ from style_seqcvae_tpu_torch.models.detector.targets import (
 from style_seqcvae_tpu_torch.ops.kernels import roi_align as roi_align_kernel
 from style_seqcvae_tpu_torch.ops.roi_align import roi_pool
 from style_seqcvae_tpu_torch.ops.roi_crop import roi_crop
+from style_seqcvae_tpu_torch.parallel.collectives import global_sum, world_size
 
 _TEST = InferenceConfig()
 
@@ -209,14 +211,16 @@ def cb_sigmoid_loss(labels_mh: torch.Tensor, logits: torch.Tensor,
 
 
 def cb_focal_loss(labels_mh: torch.Tensor, logits: torch.Tensor,
-                  samples_per_cls: torch.Tensor, beta: float, gamma: float) -> torch.Tensor:
+                  samples_per_cls: torch.Tensor, beta: float, gamma: float,
+                  group=None) -> torch.Tensor:
     """Class-balanced focal loss, a scalar: Σ w · exp(-γ·y·x - γ·softplus(-x))
-    · BCE over the positive labels' count (at least 1)."""
+    · BCE over the positive labels' count (at least 1; with a process
+    ``group``, the count over every rank's rows)."""
     per_ex = _cb_example_weights(labels_mh, samples_per_cls, beta, logits.shape[-1])
     bce = _stable_bce_with_logits(logits, labels_mh)
     modulator = torch.exp(-gamma * labels_mh * logits - gamma * _softplus(-logits))
     total = (per_ex * modulator * bce).sum()
-    return total / labels_mh.sum().clamp(min=1.0)
+    return total / global_sum(labels_mh.sum(), group).clamp(min=1.0)
 
 
 def cb_softmax_loss(labels_mh: torch.Tensor, logits: torch.Tensor,
@@ -235,18 +239,35 @@ def _linear_f32(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 def detector_forward_train(params: Dict[str, Any], cfg: DetectorConfig,
                            batch: Dict[str, torch.Tensor],
-                           draws: Union[TrainDraws, torch.Generator]) -> Dict[str, torch.Tensor]:
+                           draws: Union[TrainDraws, torch.Generator],
+                           group=None) -> Dict[str, torch.Tensor]:
     """The training forward. batch: images (B, H, W, 3), im_info (B, 3),
     gt_boxes (B, G, 5), num_gt (B,), gt_atts (B, G, A) and, with an
     attribute head, att_counts (A,). ``draws``: the step's uniforms, or a
     generator to draw them from. Returns the losses ``rpn_cls``,
     ``rpn_box``, ``rcnn_cls``, ``rcnn_box``, ``rcnn_cls_atts`` (with an
-    attribute head) and ``total``, f32 scalars."""
+    attribute head) and ``total``, f32 scalars.
+
+    With a process ``group`` the batch is this rank's contiguous block of
+    B images of a global batch of B·world (``parallel/mesh.py::
+    local_rows``), and each returned loss is the rank's share of the global
+    loss that one process computes on the whole batch: every term divides
+    its local numerator by its global denominator (anchor, RoI and
+    attribute counts summed over the ranks before their ``max(·, 1)``), so
+    the ranks' losses and gradients sum to the global ones. A generator
+    draws the global batch's uniforms and the rank keeps its images'; the
+    anchors' border test reads the global first image's size, as JAX's."""
     _check_cfg(cfg)
     images, im_info = batch["images"], batch["im_info"]
     gt_boxes, num_gt, gt_atts = batch["gt_boxes"], batch["num_gt"], batch["gt_atts"]
     B = images.shape[0]
     R = cfg.pt.rois_per_image
+    world = world_size(group)
+    # the border test reads the batch's first image, the global one in a group
+    first_info = im_info[:1]
+    if group is not None:
+        first_info = first_info.clone()
+        dist.broadcast(first_info, src=dist.get_global_rank(group, 0), group=group)
 
     base_feat = _backbone(params, cfg, images)
     fh, fw = base_feat.shape[1], base_feat.shape[2]
@@ -254,19 +275,23 @@ def detector_forward_train(params: Dict[str, Any], cfg: DetectorConfig,
                           base_feat.device)
     cls_logits, bbox_deltas = rpn_heads(params["rpn"], base_feat)
     if isinstance(draws, torch.Generator):
-        draws = draw_train_uniforms(draws, B, anchors.shape[0], cfg.rpn.post_nms_top_n, R,
-                                    base_feat.device)
+        draws = draw_train_uniforms(draws, B * world, anchors.shape[0],
+                                    cfg.rpn.post_nms_top_n, R, base_feat.device)
+        if world > 1:
+            mine = slice(dist.get_rank(group) * B, (dist.get_rank(group) + 1) * B)
+            draws = TrainDraws(*[d[mine] for d in draws])
     with torch.no_grad():        # proposals are training data, not differentiated
         rois, _, roi_valid = proposal_layer(
             cls_logits.detach(), bbox_deltas.detach(), anchors, im_info,
             pre_nms_top_n=cfg.rpn.pre_nms_top_n, post_nms_top_n=cfg.rpn.post_nms_top_n,
             nms_thresh=cfg.rpn.nms_thresh)
         labels_a, targets_a, in_w_a, out_w_a = anchor_target(
-            anchors, gt_boxes, num_gt, im_info, (draws.anchor_fg, draws.anchor_bg), cfg.rpn)
+            anchors, gt_boxes, num_gt, first_info, (draws.anchor_fg, draws.anchor_bg),
+            cfg.rpn)
         rois_s, labels, bbox_targets, inside_w, labels_atts, _ = proposal_target(
             rois, roi_valid, gt_boxes, num_gt, gt_atts, (draws.roi_fg, draws.roi_bg), cfg.pt)
     rpn_loss_cls, rpn_loss_box = rpn_losses(cls_logits, bbox_deltas, labels_a, targets_a,
-                                            in_w_a, out_w_a)
+                                            in_w_a, out_w_a, group=group)
 
     pooled_feat = _pool_rois(params, cfg, base_feat, rois_s.reshape(B * R, 5))
     cls_score = _linear_f32(params["cls_score"], pooled_feat)             # (BR, C)
@@ -276,11 +301,12 @@ def detector_forward_train(params: Dict[str, Any], cfg: DetectorConfig,
         bp = bbox_pred.reshape(B * R, -1, 4)
         bbox_pred = torch.gather(bp, 1, labels_flat[:, None, None].expand(B * R, 1, 4))[:, 0]
     logp = torch.log_softmax(cls_score, dim=-1)
-    loss_cls = -torch.gather(logp, 1, labels_flat[:, None]).mean()
+    nll = -torch.gather(logp, 1, labels_flat[:, None])
+    loss_cls = nll.mean() if group is None else nll.sum() / (B * R * world)
     # outside weights are the inside weights (the foreground indicator)
     iw = inside_w.reshape(B * R, 4)
     loss_bbox = smooth_l1_loss(bbox_pred.reshape(B * R, 4), bbox_targets.reshape(B * R, 4),
-                               iw, iw, sigma=1.0, reduce_dims=(1,))
+                               iw, iw, sigma=1.0, reduce_dims=(1,), group=group)
     losses = {"rpn_cls": rpn_loss_cls, "rpn_box": rpn_loss_box, "rcnn_cls": loss_cls,
               "rcnn_box": loss_bbox}
 
@@ -291,7 +317,7 @@ def detector_forward_train(params: Dict[str, Any], cfg: DetectorConfig,
                                      device=att_logits.device)
         if cfg.cb_loss_type == "focal":
             loss_atts = cb_focal_loss(atts_flat, att_logits, att_counts, cfg.cb_beta,
-                                      cfg.cb_gamma)
+                                      cfg.cb_gamma, group=group)
         else:
             if cfg.cb_loss_type == "sigmoid":
                 cb = cb_sigmoid_loss(atts_flat, att_logits, att_counts, cfg.cb_beta)
@@ -301,9 +327,10 @@ def detector_forward_train(params: Dict[str, Any], cfg: DetectorConfig,
                 raise ValueError(f"unknown cb_loss_type {cfg.cb_loss_type!r}")
             has_atts = atts_flat.sum(dim=1) > 0
             # the mean over (rows with attributes, classes)
-            denom = (has_atts.sum() * cb.shape[1]).clamp(min=1)
+            denom = (global_sum(has_atts.sum(), group) * cb.shape[1]).clamp(min=1)
             loss_atts = torch.where(has_atts[:, None], cb, 0.0).sum() / denom
-        losses["rcnn_cls_atts"] = torch.where(atts_flat.sum() > 0, loss_atts, 0.0)
+        any_atts = global_sum(atts_flat.sum(), group) > 0
+        losses["rcnn_cls_atts"] = torch.where(any_atts, loss_atts, 0.0)
 
     losses["total"] = (losses["rpn_cls"] + losses["rpn_box"] + losses["rcnn_cls"]
                        + cfg.att_loss_weight * losses.get("rcnn_cls_atts", 0.0)

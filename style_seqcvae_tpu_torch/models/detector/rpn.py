@@ -30,6 +30,7 @@ from style_seqcvae_tpu_torch.ops.boxes import (
     clip_boxes,
 )
 from style_seqcvae_tpu_torch.ops.kernels import nms as nms_kernel
+from style_seqcvae_tpu_torch.parallel.collectives import global_sum, world_size
 
 
 class RPNConfig(NamedTuple):
@@ -205,30 +206,38 @@ def anchor_target(all_anchors: torch.Tensor, gt_boxes: torch.Tensor, num_gt: tor
 
 
 def rpn_losses(cls_logits: torch.Tensor, bbox_deltas: torch.Tensor, labels: torch.Tensor,
-               bbox_targets: torch.Tensor, inside_w: torch.Tensor, outside_w: torch.Tensor):
+               bbox_targets: torch.Tensor, inside_w: torch.Tensor, outside_w: torch.Tensor,
+               group=None):
     """The RPN's cross entropy over the sampled anchors and its smooth-L1
-    (sigma 3) box loss."""
+    (sigma 3) box loss. With a process ``group`` the batch is a rank's
+    share: each term divides the local sum by the global count (the
+    sampled anchors of every rank's images; the global image count)."""
     B = cls_logits.shape[0]
     logits = cls_logits.reshape(B, -1, 2)
     mask = labels >= 0
     lab = labels.clamp(0, 1).long()
     logp = torch.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, lab[..., None])[..., 0]
-    loss_cls = torch.where(mask, ce, 0.0).sum() / mask.sum().clamp(min=1)
+    loss_cls = torch.where(mask, ce, 0.0).sum() / global_sum(mask.sum(), group).clamp(min=1)
     deltas = bbox_deltas.reshape(B, -1, 4)
     loss_box = smooth_l1_loss(deltas, bbox_targets, inside_w[..., None], outside_w[..., None],
-                              sigma=3.0, reduce_dims=(1, 2))
+                              sigma=3.0, reduce_dims=(1, 2), group=group)
     return loss_cls, loss_box
 
 
 def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, inside_w: torch.Tensor,
                    outside_w: torch.Tensor, sigma: float = 1.0,
-                   reduce_dims: Tuple[int, ...] = (1,)) -> torch.Tensor:
-    """Smooth L1: summed over ``reduce_dims``, then the mean."""
+                   reduce_dims: Tuple[int, ...] = (1,), group=None) -> torch.Tensor:
+    """Smooth L1: summed over ``reduce_dims``, then the mean over the rows;
+    with a process ``group``, the local rows' sum over every rank's rows
+    (each rank holds as many)."""
     sigma2 = sigma ** 2
     diff = inside_w * (pred - target)
     ad = diff.abs()
     flag = (ad < 1.0 / sigma2).to(pred.dtype)
     loss = flag * 0.5 * sigma2 * diff ** 2 + (1 - flag) * (ad - 0.5 / sigma2)
     loss = outside_w * loss
-    return loss.sum(dim=reduce_dims).mean()
+    per_row = loss.sum(dim=reduce_dims)
+    if group is None:
+        return per_row.mean()
+    return per_row.sum() / (per_row.numel() * world_size(group))

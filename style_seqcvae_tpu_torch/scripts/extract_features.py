@@ -46,6 +46,7 @@ from style_seqcvae_tpu_torch.data.detection import (
 )
 from style_seqcvae_tpu_torch.data.image_decode import ImageError
 from style_seqcvae_tpu_torch.device import resolve_device
+from style_seqcvae_tpu_torch.parallel.multihost import maybe_initialize_distributed
 from style_seqcvae_tpu_torch.models.detector.extract import (
     decode_boxes,
     extraction_row,
@@ -102,6 +103,9 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, Any]] = Non
         parser.error("--checkpoint-name names an Orbax checkpoint, which the port does not "
                      "read: pass a .npz of the detector tree or a .pth as --checkpoint-path")
     device = resolve_device("cpu" if _A.cpu else None)
+    # joins the process group a launcher describes, as the JAX CLI does; a
+    # no-op in a plain run
+    maybe_initialize_distributed(device)
     t_start = time.perf_counter()
     st: Dict[str, Any] = {k: 0.0 for k in ("decode_prepare_s", "forward_s", "post_s",
                                            "write_s")}

@@ -34,6 +34,16 @@ same weights. z-noise comes from a ``torch.Generator`` seeded with
 
 Host collation of the next group runs on a producer thread
 (``data/prefetch.py``) while the current group decodes.
+
+``--num-data N`` splits every decode's (z, batch, states, beam) grid over
+the first N devices (``cuda:0`` … ``cuda:N-1``, or N CPU entries under
+``--cpu``; ``DecodeHarness(mesh=...)``): z when N divides N_Z_SAMPLES, else
+the images of a group; fewer cards than N raise. On the CPU the captions
+are those of ``--num-data 1``, token for token. On CUDA a chunk's products
+have fewer rows, and cuBLAS picks its kernels by shape, so they round
+otherwise and near ties may flip: at config 3 split 2 x 10 on one H100,
+99.4-99.7% of the captions were identical in f32 and 13-25% in bf16
+(ROADMAP.md section C, "Split decodes on the card round in other places").
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ from style_seqcvae_tpu_torch.models.captioner import (
     init_captioner,
 )
 from style_seqcvae_tpu_torch.ops.kernels._build import KernelError
+from style_seqcvae_tpu_torch.parallel.mesh import make_mesh
 from style_seqcvae_tpu_torch.training.checkpointing import read_checkpoint
 from style_seqcvae_tpu_torch.weights import (
     cast_floats,
@@ -102,7 +113,10 @@ parser.add_argument("--batch-images", type=int, default=1,
                     help="images per device dispatch (the reference decodes "
                          "strictly one at a time, inference.py:95)")
 parser.add_argument("--num-data", type=int, default=1,
-                    help="shard the decode over the first N devices (ROADMAP A10)")
+                    help="split the (z x batch x states x beam) decode grid over the "
+                         "first N devices; on the CPU the captions are those of "
+                         "--num-data 1, on CUDA near ties may flip (kernels chosen by "
+                         "shape; see ROADMAP.md section C)")
 parser.add_argument("--sampler", default="",
                     choices=["", "multinomial", "topk", "topp", "gumbel"],
                     help="decode with a stochastic sampler instead of beam/CBS "
@@ -128,10 +142,14 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
     ``wait_s`` (waiting for a prepared group) and ``decode_s`` (the
     decodes, the selections and the detokenization)."""
     _A = parser.parse_args(argv)
-    if _A.num_data > 1:
-        raise NotImplementedError("--num-data > 1: multi-GPU decoding is not ported yet "
-                                  "(ROADMAP A10)")
     device = resolve_device("cpu" if _A.cpu else None)
+    mesh = None
+    if _A.num_data > 1:
+        if device.type == "cuda" and torch.cuda.device_count() < _A.num_data:
+            raise SystemExit(f"--num-data {_A.num_data} needs {_A.num_data} devices, found "
+                             f"{torch.cuda.device_count()} (cuda)")
+        mesh = make_mesh(_A.num_data, 1, ["cpu"] * _A.num_data if _A.cpu
+                         else [f"cuda:{i}" for i in range(_A.num_data)])
     t_start = time.perf_counter()
     st: Dict[str, float] = {k: 0.0 for k in ("item_s", "collate_s", "latents_s", "wait_s",
                                              "decode_s")}
@@ -179,7 +197,7 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
 
     decode_dtype = torch.bfloat16 if _A.bf16 else torch.float32
     params = to_device(cast_floats(params, decode_dtype), device)
-    harness = DecodeHarness(params, model_cfg, device=device, family=_A.model)
+    harness = DecodeHarness(params, model_cfg, device=device, family=_A.model, mesh=mesh)
     sampler_spec = None
     if _A.sampler:
         sampler_spec = dict(method=_A.sampler, top_k=_A.sampler_k, top_p=_A.sampler_p,

@@ -85,6 +85,7 @@ from style_seqcvae_tpu_torch.decoding.device_fsm import build_attribute_wordform
 from style_seqcvae_tpu_torch.decoding.fsm import FiniteStateMachineBuilder
 from style_seqcvae_tpu_torch.decoding.harness import detokenize
 from style_seqcvae_tpu_torch.device import resolve_device
+from style_seqcvae_tpu_torch.parallel.multihost import maybe_initialize_distributed
 from style_seqcvae_tpu_torch.models.captioner import (
     CaptionerConfig,
     hashed_random_embeddings,
@@ -306,6 +307,9 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, Any]] = Non
                      "one canvas)")
     stats = {} if stats is None else stats
     device = resolve_device("cpu" if _A.cpu else None)
+    # joins the process group a launcher describes, as the JAX CLI does; a
+    # no-op in a plain run
+    maybe_initialize_distributed(device)
     if _A.http is not None:
         # the decode workers import this CLI while the models are set up
         decoders = ProcessPoolExecutor(HOST_DECODE_WORKERS,

@@ -27,6 +27,16 @@ freeze), as the JAX CLI's: ``--device-corpus`` is off for it and
 directories (``training/checkpointing.py``), which
 ``--start-from-checkpoint NAME`` resumes step for step and the port's
 inference CLI reads.
+
+Data parallel (``parallel/``): under a launcher (torchrun, or the
+``SSC_COORDINATOR`` / ``SSC_NUM_PROCESSES`` / ``SSC_PROCESS_ID``
+environment) each rank loads ``BATCH_SIZE / world`` rows by
+``process_shard`` and the gradients are summed between the backward and
+the clip; ``--num-data`` must then be -1 or the world size. In a plain run
+``--num-data N`` above 1 starts N such ranks on this machine itself
+(``cuda:0`` … ``cuda:N-1``, or the CPU under ``--cpu``), which train on the
+batches and the z-noise of one process. Rank 0 writes the checkpoints and
+``metrics.jsonl``.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from __future__ import annotations
 import argparse
 import os
 import random
+import sys
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -48,6 +59,14 @@ from style_seqcvae_tpu_torch.data.vocabulary import (
     add_constraint_words_to_vocabulary,
 )
 from style_seqcvae_tpu_torch.device import resolve_device
+from style_seqcvae_tpu_torch.parallel.mesh import make_mesh, require_no_model_axis
+from style_seqcvae_tpu_torch.parallel.multihost import (
+    local_batch_size,
+    maybe_initialize_distributed,
+    process_count,
+    process_index,
+    run_local_ranks,
+)
 from style_seqcvae_tpu_torch.models.baseline import init_baseline
 from style_seqcvae_tpu_torch.models.captioner import (
     CaptionerConfig,
@@ -79,9 +98,11 @@ parser.add_argument("--start-from-checkpoint", default="",
                     help="a checkpoint name in --serialization-dir to resume from")
 parser.add_argument("--in-memory", action="store_true")
 parser.add_argument("--num-data", type=int, default=-1,
-                    help="data-parallel size: -1 (all) and 1 both mean the one device "
-                         "the port trains on; more waits for ROADMAP A10")
-parser.add_argument("--num-model", type=int, default=1)
+                    help="data-parallel ranks: under a launcher -1 or the world size; in "
+                         "a plain run N > 1 starts N ranks on this machine, -1 and 1 "
+                         "train in this process")
+parser.add_argument("--num-model", type=int, default=1,
+                    help="tensor-parallel size: 1 only (more waits for ROADMAP A10.2)")
 parser.add_argument("--cpu", action="store_true",
                     help="train on the CPU instead of the GPU")
 parser.add_argument("--bf16-compute", action="store_true",
@@ -118,16 +139,30 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
     code. ``stats``, when given, receives ``steps`` (run here), ``start``
     (the first iteration) and the :class:`StepTimer` summary (``data_ms``,
     ``step_ms``: host milliseconds a step)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     _A = parser.parse_args(argv)
-    if _A.num_data not in (-1, 1) or _A.num_model != 1:
-        raise NotImplementedError("--num-data/--num-model other than one device: "
-                                  "multi-GPU training is not ported yet (ROADMAP A10)")
-    device = resolve_device("cpu" if _A.cpu else None)
+    require_no_model_axis(_A.num_model)
+    device_arg = "cpu" if _A.cpu else None
+    resolve_device(device_arg)
+    mesh = None
+    if maybe_initialize_distributed(device_arg):
+        mesh = make_mesh(_A.num_data, 1, [device_arg] if _A.cpu else None)
+    elif _A.num_data > 1:
+        run_local_ranks("style_seqcvae_tpu_torch.scripts.train", argv, _A.num_data,
+                        device_arg)
+        if stats is not None:
+            stats.update(ranks=_A.num_data)
+        return 0
+    elif _A.num_data not in (-1, 1):
+        raise ValueError(f"--num-data {_A.num_data}: pass -1, 1 or a number of ranks")
+    device = mesh.device if mesh is not None else resolve_device(device_arg)
+    rank0 = process_index() == 0
 
     _C = Config(_A.config, _A.config_override)
-    print(_C)
-    os.makedirs(_A.serialization_dir, exist_ok=True)
-    _C.dump(os.path.join(_A.serialization_dir, "config.yml"))
+    if rank0:
+        print(_C)
+        os.makedirs(_A.serialization_dir, exist_ok=True)
+        _C.dump(os.path.join(_A.serialization_dir, "config.yml"))
 
     random.seed(_C.RANDOM_SEED)
     np.random.seed(_C.RANDOM_SEED)
@@ -160,12 +195,16 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
     k_steps = max(1, _A.steps_per_dispatch)
     kld_weight = _C.MODEL.KLD_WEIGHT
     device_corpus = _A.device_corpus and _A.model != "baseline"
+    if device_corpus and process_count() > 1:
+        print("--device-corpus: multi-process runs feed per-process local shards — "
+              "falling back to the host feature path")
+        device_corpus = False
 
     feats_dev, feat_row_of = None, None
     if _A.model == "baseline":
         if k_steps > 1:
             raise SystemExit("--steps-per-dispatch supports the cvae family")
-        train_step = make_baseline_train_step(model_cfg, compute_dtype)
+        train_step = make_baseline_train_step(model_cfg, compute_dtype, mesh)
     elif device_corpus:
         table, feat_row_of = dataset.feature_table()
         to = compute_dtype or torch.float32
@@ -187,8 +226,8 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
         train_step = lambda s, b: step1(s, feats_dev, b)  # noqa: E731
         chained_step = lambda s, b: stepk(s, feats_dev, b)  # noqa: E731
     else:
-        train_step = make_train_step(model_cfg, kld_weight, compute_dtype)
-        chained_step = make_chained_train_step(model_cfg, kld_weight, compute_dtype)
+        train_step = make_train_step(model_cfg, kld_weight, compute_dtype, mesh)
+        chained_step = make_chained_train_step(model_cfg, kld_weight, compute_dtype, mesh)
 
     ckpt = CheckpointManager(_A.serialization_dir, mode="max")
     start_iteration = 1
@@ -200,8 +239,10 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
     writer = MetricsWriter(_A.serialization_dir)
     timer = StepTimer()
     num_iterations = _A.max_iterations or _C.OPTIM.NUM_ITERATIONS
-    batches = dataset.batches(_C.OPTIM.BATCH_SIZE, rng=random.Random(_C.RANDOM_SEED),
-                              process_shard=(0, 1))
+    # each rank: its stride of the same seeded shuffle, BATCH_SIZE / world rows
+    batches = dataset.batches(local_batch_size(_C.OPTIM.BATCH_SIZE),
+                              rng=random.Random(_C.RANDOM_SEED),
+                              process_shard=(process_index(), process_count()))
 
     def host_batches():
         for batch in batches:
@@ -243,7 +284,7 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
                 "kld_loss": get(metrics["kld_loss"]),
                 "loss": get(metrics["loss"]),
                 **timer.summary()})
-        if iteration % 2000 == 0:
+        if iteration % 2000 == 0 and rank0:
             print(f"{iteration}: loss={get(metrics['loss']):.6f}")
 
     iteration = start_iteration

@@ -29,8 +29,17 @@ resized there. Parameters are ``init_detector``'s, seeded ``--seed`` (not
 JAX's PRNGKey draws); the sampling's uniforms come from a
 ``torch.Generator`` seeded ``--seed + 1``. ``--bf16-compute`` runs the
 forward and backward in bfloat16 on f32 master parameters. It runs on
-``cuda`` unless ``--cpu`` is given, and raises without a GPU. ``--num-data``
-other than 1 (data parallel training) waits for ROADMAP A10.
+``cuda`` unless ``--cpu`` is given, and raises without a GPU.
+
+Data parallel (``parallel/``), as the captioner's train CLI: under a
+launcher (torchrun or the ``SSC_*`` environment) ``--num-data`` is -1 or the
+world size, and in a plain run ``--num-data N`` above 1 starts N ranks on
+this machine. ``--ims-per-batch`` must divide by the ranks. Every rank
+walks the same shuffle, flips and canvas buckets, loads only its
+contiguous block of each step's images, draws the global step's uniforms
+and keeps its images' draws; the losses divide by global counts and the
+gradients are summed before the clip, so the steps are one process's on
+the whole batch. Rank 0 writes the checkpoints and ``metrics.jsonl``.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from __future__ import annotations
 import argparse
 import os
 import random
+import sys
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -61,6 +71,13 @@ from style_seqcvae_tpu_torch.models.detector.faster_rcnn import (
 )
 from style_seqcvae_tpu_torch.models.detector.rpn import RPNConfig
 from style_seqcvae_tpu_torch.models.detector.targets import ProposalTargetConfig
+from style_seqcvae_tpu_torch.parallel.collectives import reduce_gradients, reduce_scalars
+from style_seqcvae_tpu_torch.parallel.mesh import DataMesh, make_mesh
+from style_seqcvae_tpu_torch.parallel.multihost import (
+    maybe_initialize_distributed,
+    process_index,
+    run_local_ranks,
+)
 from style_seqcvae_tpu_torch.training.checkpointing import write_checkpoint
 from style_seqcvae_tpu_torch.training.detector_optimizer import DetectorSGD
 from style_seqcvae_tpu_torch.utils.logging import MetricsWriter, StepTimer, device_sync
@@ -85,7 +102,9 @@ parser.add_argument("--ims-per-batch", type=int, default=1,
 parser.add_argument("--bf16-compute", action="store_true",
                     help="bfloat16 forward and backward with float32 master params")
 parser.add_argument("--num-data", type=int, default=1,
-                    help="data-parallel size: 1 only; more waits for ROADMAP A10")
+                    help="data-parallel ranks over --ims-per-batch: under a launcher -1 or "
+                         "the world size; in a plain run N > 1 starts N ranks on this "
+                         "machine")
 parser.add_argument("--steps-per-dispatch", type=int, default=1,
                     help="K optimizer steps per filled canvas bucket of K · ims-per-batch "
                          "images, run in turn: the same steps and draws as K = 1")
@@ -124,12 +143,16 @@ def detector_config(D, num_classes: int, n_attribs: int, depth: int, remat: bool
         att_loss_weight=D.ATT_LOSS_WEIGHT, remat=remat)
 
 
-def make_train_step(det_cfg: DetectorConfig, opt: DetectorSGD, bf16: bool = False
-                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+def make_train_step(det_cfg: DetectorConfig, opt: DetectorSGD, bf16: bool = False,
+                    mesh: Optional[DataMesh] = None) -> Callable[..., Dict[str, torch.Tensor]]:
     """One SGD step: ``step(params, batch, draws)`` runs the training
     forward (in bf16 on a cast of the f32 ``params`` under ``bf16``), the
     backward and ``opt``; returns the detached losses. ``draws``: a
-    ``TrainDraws`` or a ``torch.Generator``."""
+    ``TrainDraws`` or a ``torch.Generator``. Under ``mesh`` the batch is
+    this rank's block of images, the gradients are summed over the ranks
+    before ``opt`` clips them, and the returned losses are the global
+    ones."""
+    group = None if mesh is None else mesh.group
 
     def step(params: Dict[str, Any], batch: Dict[str, torch.Tensor], draws) -> Dict[str, Any]:
         if bf16:
@@ -137,8 +160,11 @@ def make_train_step(det_cfg: DetectorConfig, opt: DetectorSGD, bf16: bool = Fals
             batch = dict(batch, images=batch["images"].to(torch.bfloat16))
         else:
             compute = params
-        losses = detector_forward_train(compute, det_cfg, batch, draws)
+        losses = detector_forward_train(compute, det_cfg, batch, draws, group=group)
         losses["total"].backward()
+        if group is not None:
+            reduce_gradients([p for _, p in opt.named], group)
+            losses = reduce_scalars(losses, group)
         opt.apply()
         return {k: v.detach() for k, v in losses.items()}
 
@@ -161,13 +187,30 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, Any]] = Non
     """Run the CLI on ``argv`` (``sys.argv[1:]`` when None); returns the exit
     code. ``stats``, when given, receives ``steps``, ``epochs``,
     ``checkpoints`` (paths), ``load_s`` (reading, decoding, flipping and
-    resizing the images), ``wall_s`` and StepTimer's ``data_ms`` and
-    ``step_ms`` (host milliseconds a step, each step synchronised)."""
+    resizing this rank's images), ``wall_s`` and StepTimer's ``data_ms`` and
+    ``step_ms`` (host milliseconds a step, each step synchronised); a plain
+    run that starts its ranks receives ``ranks`` only."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     _A = parser.parse_args(argv)
-    if _A.num_data != 1:
-        raise NotImplementedError("--num-data other than 1: multi-GPU training is not "
-                                  "ported yet (ROADMAP A10)")
-    device = resolve_device("cpu" if _A.cpu else None)
+    device_arg = "cpu" if _A.cpu else None
+    resolve_device(device_arg)
+    mesh = None
+    if maybe_initialize_distributed(device_arg):
+        mesh = make_mesh(_A.num_data, 1, [device_arg] if _A.cpu else None)
+    elif _A.num_data > 1:
+        if max(_A.ims_per_batch, 1) % _A.num_data:
+            raise ValueError(f"--ims-per-batch {_A.ims_per_batch} must be divisible by the "
+                             f"data-parallel size {_A.num_data}")
+        run_local_ranks("style_seqcvae_tpu_torch.scripts.train_detector", argv, _A.num_data,
+                        device_arg)
+        if stats is not None:
+            stats.update(ranks=_A.num_data)
+        return 0
+    elif _A.num_data not in (-1, 1):
+        raise ValueError(f"--num-data {_A.num_data}: pass -1, 1 or a number of ranks")
+    device = mesh.device if mesh is not None else resolve_device(device_arg)
+    world = 1 if mesh is None else mesh.world_size
+    rank = process_index()
     t_start = time.perf_counter()
     _C = Config(config_override=_A.config_override)
     D = _C.DET
@@ -194,7 +237,11 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, Any]] = Non
         dataset.att_counts if dataset.att_counts is not None
         else np.ones((max(dataset.n_attribs, 1),), np.float32), dtype=torch.float32,
         device=device)
-    train_step = make_train_step(det_cfg, opt, _A.bf16_compute)
+    if ims % world:
+        raise ValueError(f"--ims-per-batch {ims} must be divisible by the data-parallel size "
+                         f"{world}")
+    per_rank = ims // world
+    train_step = make_train_step(det_cfg, opt, _A.bf16_compute, mesh)
     generator = torch.Generator(device=device).manual_seed(_A.seed + 1)
 
     os.makedirs(_A.serialization_dir, exist_ok=True)
@@ -207,10 +254,25 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, Any]] = Non
     checkpoints: List[str] = []
 
     def make_one(items, canvas):
+        """This rank's block of a group of ``(record, flipped)`` items padded
+        to ``ims`` with its last: each image loaded, flipped where drawn
+        (before the resize: boxes are in the original image's coordinates)
+        and resized, then batched."""
+        nonlocal load_s
         while len(items) < ims:
             items.append(items[-1])
-        batch = make_batch([it[0] for it in items], [it[1] for it in items],
-                           [it[2] for it in items], canvas, D.MAX_NUM_GT_BOXES,
+        recs, imgs, scales = [], [], []
+        for rec, flipped in items[rank * per_rank:(rank + 1) * per_rank]:
+            t0 = time.perf_counter()
+            img = load_image_bgr(rec["file_name"], device)
+            if flipped:
+                rec, img = flip_record(rec, img)
+            img, scale = prepare_image(img, D.TRAIN.SCALES[0], D.TRAIN.MAX_SIZE)
+            load_s += time.perf_counter() - t0
+            recs.append(rec)
+            imgs.append(img)
+            scales.append(scale)
+        batch = make_batch(recs, imgs, scales, canvas, D.MAX_NUM_GT_BOXES,
                            max(dataset.n_attribs, 1))
         batch["att_counts"] = att_counts
         return batch
@@ -221,7 +283,9 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, Any]] = Non
                                                        step_count + 1)):
             vals = {n: device_sync(v) for n, v in losses.items()}
             writer.scalars(step_count, {**vals, **timer.summary()})
-            print(f"e{epoch} s{step_count}: " + " ".join(f"{n}={v:.4f}" for n, v in vals.items()))
+            if rank == 0:
+                print(f"e{epoch} s{step_count}: "
+                      + " ".join(f"{n}={v:.4f}" for n, v in vals.items()))
 
     def run_steps(epoch, canvas, items, k):
         """``k`` SGD steps in turn over ``k`` groups of up to ``ims``
@@ -241,16 +305,10 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, Any]] = Non
         random.shuffle(order)
         buckets: Dict[tuple, list] = {}
         for idx in order[:steps_per_epoch]:
-            t0 = time.perf_counter()
             rec = dataset.record(idx)
-            img = load_image_bgr(rec["file_name"], device)
-            # flip BEFORE the resize: boxes are in the original image's coordinates
-            if D.TRAIN.USE_FLIPPED and random.random() < 0.5:
-                rec, img = flip_record(rec, img)
-            img, scale = prepare_image(img, D.TRAIN.SCALES[0], D.TRAIN.MAX_SIZE)
-            load_s += time.perf_counter() - t0
+            flipped = bool(D.TRAIN.USE_FLIPPED and random.random() < 0.5)
             canvas = canvas_for(rec, tuple(_A.canvas))
-            buckets.setdefault(canvas, []).append((rec, img, scale))
+            buckets.setdefault(canvas, []).append((rec, flipped))
             if len(buckets[canvas]) == ims * K:
                 run_steps(epoch, canvas, buckets.pop(canvas), K)
         # leftovers: full groups as single steps, the last partial group padded

@@ -14,6 +14,11 @@ optimizer's names), ``opt_state/step`` and ``generator`` (the generator's
 state bytes). The params are either model family's tree; a restore into
 the other family's state raises ``ValueError`` naming both.
 A directory in any other layout raises ``ValueError`` naming what it holds.
+
+In a process group (``parallel/multihost.py``) rank 0 writes and prunes,
+and every rank waits at a barrier after each write, so that any rank can
+read what was saved. Every rank holds the same state, so a checkpoint
+restores at any world size.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from style_seqcvae_tpu_torch.parallel.multihost import process_index
 from style_seqcvae_tpu_torch.weights import load_params_npz, named_leaves, param_family
 
 STATE_FILE = "state.npz"
@@ -44,13 +51,17 @@ def read_checkpoint(path: str) -> Dict[str, Any]:
 def write_checkpoint(path: str, flat: Dict[str, np.ndarray]) -> None:
     """Write the checkpoint directory ``path`` holding ``flat`` (tree paths
     joined by ``/`` → arrays) as its ``state.npz``, replacing one that is
-    there; a write that is cut leaves the old directory in place."""
-    tmp = path + ".tmp"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    np.savez(os.path.join(tmp, STATE_FILE), **flat)
-    shutil.rmtree(path, ignore_errors=True)
-    os.replace(tmp, path)
+    there; a write that is cut leaves the old directory in place. In a
+    process group rank 0 writes, and every rank returns once it has."""
+    if process_index() == 0:
+        tmp = path + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, STATE_FILE), **flat)
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+    if dist.is_initialized():
+        dist.barrier()
 
 
 class CheckpointManager:
@@ -71,7 +82,7 @@ class CheckpointManager:
         ``metric`` improves or ties (the train CLI passes a constant metric,
         so best tracks the newest save), then prune."""
         self.save(state, f"checkpoint_{iteration}")
-        if config_dump:
+        if config_dump and process_index() == 0:
             with open(self._path(f"checkpoint_{iteration}.config.yml"), "w") as f:
                 f.write(config_dump)
         improved = (
@@ -85,7 +96,7 @@ class CheckpointManager:
         self._prune()
 
     def _prune(self) -> None:
-        if self._keep <= 0:
+        if self._keep <= 0 or process_index() != 0:
             return
         its = sorted(self._iterations())
         for it in its[:max(0, len(its) - self._keep)]:

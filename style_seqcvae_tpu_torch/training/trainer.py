@@ -8,6 +8,15 @@ Each step function takes an optional ``eps``, the (T+1, B, z) z-noise
 stack (chained steps: (K, T+1, B, z)); without it the noise is drawn from
 the state's ``torch.Generator``.
 
+Data parallel: with a ``DataMesh`` of several ranks (``parallel/mesh.py``)
+each rank's objective is its local mean over the world size, the gradients
+are summed over the ranks between the backward and the clip (which so sees
+the global gradient), and the metrics are summed, so every rank holds the
+global step. A step that draws its own z-noise draws the global (T+1,
+B·world, z) stack, as one process on the concatenated batch would, and
+keeps the rows its samples hold there: ``TrainingDataset.batches``'s
+``process_shard`` gives rank r rows r, r+world, ... of that batch.
+
 ``compute_dtype=torch.bfloat16`` runs the forward and backward in bf16 on
 casts of the f32 master parameters and of the batch's float entries, made
 inside the step as JAX's ``_compute_cast`` makes them (``:37-44``), so the
@@ -29,6 +38,8 @@ import torch
 from style_seqcvae_tpu_torch.device import resolve_device
 from style_seqcvae_tpu_torch.models.baseline import baseline_train_forward
 from style_seqcvae_tpu_torch.models.captioner import CaptionerConfig, train_forward
+from style_seqcvae_tpu_torch.parallel.collectives import reduce_gradients, reduce_scalars
+from style_seqcvae_tpu_torch.parallel.mesh import DataMesh
 from style_seqcvae_tpu_torch.training.optimizer import (
     SGDFreezeSchedule,
     make_captioner_optimizer,
@@ -76,26 +87,54 @@ def _on_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.T
             for k, v in batch.items()}
 
 
-def _sgd_step(state: TrainState, batch: Dict[str, Any], compute_dtype, objective):
+def _sgd_step(state: TrainState, batch: Dict[str, Any], compute_dtype, objective,
+              mesh: Optional[DataMesh] = None):
     """One optimizer step on ``objective(params, batch) -> (loss, metrics)``,
     evaluated on the compute-dtype casts of the params and the batch: the
-    freeze schedule's preparation, the backward, the clip, SGD and LR."""
+    freeze schedule's preparation, the backward, the gradients' sum over
+    ``mesh``'s ranks, the clip, SGD and LR."""
     iteration = state.step + 1
     state.tx.prepare(iteration)
     batch = cast_floats(_on_device(batch, state.device), compute_dtype)
     loss, metrics = objective(cast_floats(state.params, compute_dtype), batch)
+    group = None if mesh is None else mesh.group
+    if group is not None:
+        # the local mean over the world: the ranks' sum is the global mean
+        loss = loss / mesh.world_size
+        metrics = {k: v / mesh.world_size for k, v in metrics.items()}
     loss.backward()
+    if group is not None:
+        reduce_gradients([p for _, p in state.tx.named], group)
+        metrics = reduce_scalars(metrics, group)
     state.tx.update()
     state.step = iteration
     return state, metrics
 
 
-def _make_train_body(model_cfg: CaptionerConfig, kld_weight: float, compute_dtype=None):
+def _global_eps(state: TrainState, mesh: DataMesh, steps: int, local_batch: int,
+                z_space: int) -> torch.Tensor:
+    """This rank's rows (``rank::world``, the ``process_shard`` stride) of
+    the (steps, B·world, z) z-noise that one process on the concatenated
+    batch draws, step by step, from the generator."""
+    gen, n = state.generator, local_batch * mesh.world_size
+    eps = torch.stack([torch.randn((n, z_space), generator=gen, device=state.device)
+                       for _ in range(steps)])
+    return eps[:, mesh.rank::mesh.world_size]
+
+
+def _make_train_body(model_cfg: CaptionerConfig, kld_weight: float, compute_dtype=None,
+                     mesh: Optional[DataMesh] = None):
     """The (state, batch, eps) → (state, metrics) step shared by every
     step function."""
+    distributed = mesh is not None and mesh.world_size > 1
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    eps: Optional[torch.Tensor] = None):
+        if eps is None and distributed:
+            tokens = batch["caption_tokens"]
+            eps = _global_eps(state, mesh, tokens.shape[1] + 1, tokens.shape[0],
+                              model_cfg.z_space)
+
         def objective(params, batch):
             out = train_forward(params, model_cfg, batch, rng=state.generator,
                                 eps=None if eps is None
@@ -106,26 +145,29 @@ def _make_train_body(model_cfg: CaptionerConfig, kld_weight: float, compute_dtyp
             return loss, {"loss": loss.detach(), "reconstr_loss": reconstr.detach(),
                           "kld_loss": kld.detach()}
 
-        return _sgd_step(state, batch, compute_dtype, objective)
+        return _sgd_step(state, batch, compute_dtype, objective, mesh)
 
     return train_step
 
 
-def make_train_step(model_cfg: CaptionerConfig, kld_weight: float, compute_dtype=None):
+def make_train_step(model_cfg: CaptionerConfig, kld_weight: float, compute_dtype=None,
+                    mesh: Optional[DataMesh] = None):
     """``train_step(state, batch, eps=None) -> (state, metrics)``: one
     optimizer step; ``batch`` holds numpy arrays or tensors
     (``image_features``, ``caption_tokens``, ``sentiment``, optional
-    ``obj_att_embeds``); metrics are 0-dim tensors on the device."""
-    return _make_train_body(model_cfg, kld_weight, compute_dtype)
+    ``obj_att_embeds``), this rank's local rows under ``mesh``; metrics are
+    0-dim tensors on the device, global under ``mesh``."""
+    return _make_train_body(model_cfg, kld_weight, compute_dtype, mesh)
 
 
-def make_baseline_train_step(model_cfg: CaptionerConfig, compute_dtype=None):
+def make_baseline_train_step(model_cfg: CaptionerConfig, compute_dtype=None,
+                             mesh: Optional[DataMesh] = None):
     """``train_step(state, batch) -> (state, metrics)`` for the baseline family
     (JAX ``trainer.py:151-178``): the objective is the mean of
     ``baseline_train_forward``'s length-scaled cross entropy, with the same
     SGD, clip and LR decay as :func:`make_train_step`; metrics ``loss``,
     ``reconstr_loss`` (the same value) and ``kld_loss`` (0), 0-dim tensors on
-    the device."""
+    the device (global under ``mesh``)."""
 
     def objective(params, batch):
         loss = baseline_train_forward(params, model_cfg, batch)["loss"].mean()
@@ -134,7 +176,7 @@ def make_baseline_train_step(model_cfg: CaptionerConfig, compute_dtype=None):
                       "kld_loss": torch.zeros_like(metric)}
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        return _sgd_step(state, batch, compute_dtype, objective)
+        return _sgd_step(state, batch, compute_dtype, objective, mesh)
 
     return train_step
 
@@ -154,11 +196,11 @@ def _chain(step):
 
 
 def make_chained_train_step(model_cfg: CaptionerConfig, kld_weight: float,
-                            compute_dtype=None):
+                            compute_dtype=None, mesh: Optional[DataMesh] = None):
     """``chained(state, batches, eps=None)``: K steps over batches stacked on
     a leading (K, ...) axis, the metrics stacked (K,); the same K single
     steps in turn."""
-    return _chain(_make_train_body(model_cfg, kld_weight, compute_dtype))
+    return _chain(_make_train_body(model_cfg, kld_weight, compute_dtype, mesh))
 
 
 def _gather_corpus_rows(batch: Dict[str, Any], feats_table) -> Dict[str, Any]:

@@ -2,7 +2,8 @@
 ``style_seqcvae_tpu/utils/logging.py``).
 
 :class:`MetricsWriter` writes the JSONL records the JAX writer writes
-(``{"step": it, name: float, ...}`` a line). The JAX writer also writes
+(``{"step": it, name: float, ...}`` a line); in a process group only
+rank 0 writes (the metrics it gets are the global ones). The JAX writer also writes
 TensorBoard events when flax is installed; the GPU machine has no flax, so
 the port writes the JSONL file only. :func:`device_sync` waits for the card
 and returns a Python float; :class:`StepTimer` accumulates host wall time
@@ -19,14 +20,20 @@ from typing import Any, Dict
 
 import torch
 
+from style_seqcvae_tpu_torch.parallel.multihost import process_index
+
 
 class MetricsWriter:
     def __init__(self, serialization_dir: str, filename: str = "metrics.jsonl"):
-        os.makedirs(serialization_dir, exist_ok=True)
         self._path = os.path.join(serialization_dir, filename)
-        self._f = open(self._path, "a")
+        self._f = None
+        if process_index() == 0:
+            os.makedirs(serialization_dir, exist_ok=True)
+            self._f = open(self._path, "a")
 
     def scalars(self, step: int, values: Dict[str, Any]) -> None:
+        if self._f is None:
+            return
         rec = {"step": int(step)}
         for k, v in values.items():
             rec[k] = float(v)
@@ -34,7 +41,8 @@ class MetricsWriter:
         self._f.flush()
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 def device_sync(x) -> float:

@@ -107,8 +107,8 @@ def test_port_cli_losses_match_jax_cli(world, tmp_path, monkeypatch):
     key = jax.random.PRNGKey(SEED + 1)
     port_make_train_step = P.make_train_step
 
-    def make_train_step(det_cfg, opt, bf16=False):
-        step = port_make_train_step(det_cfg, opt, bf16)
+    def make_train_step(det_cfg, opt, bf16=False, mesh=None):
+        step = port_make_train_step(det_cfg, opt, bf16, mesh)
 
         def with_jax_draws(params, batch, _generator):
             nonlocal key
@@ -170,8 +170,12 @@ def test_port_cli_chained_checkpoint_extract_and_eval(world, tmp_path, capsys):
 
 
 def test_port_cli_refuses_data_parallel(world, tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
-        P.main(_args(world, tmp_path / "x", "--num-data", "2"))
+    # data parallelism runs since it was ported (tests/test_torch_ddp.py); a
+    # step's images must divide over the ranks, and a size must be one
+    with pytest.raises(ValueError, match="divisible"):
+        P.main(_args(world, tmp_path / "x", "--num-data", "2", "--ims-per-batch", "3"))
+    with pytest.raises(ValueError, match="--num-data 0"):
+        P.main(_args(world, tmp_path / "x", "--num-data", "0"))
 
 
 def test_eval_detections_matches_jax_cli(world, tmp_path, monkeypatch):
