@@ -171,8 +171,8 @@ one JSON line per phase as it goes:
 28. ``detector_variants``: VGG16 (no attribute head) with ``align``,
    ``pool`` and ``crop``: one inference forward on 2 images at config 5's
    608 x 928 and 2 training steps: ms and peak memory;
-29. ``multigpu``, data parallelism on the one card (single-card numbers, no
-   scaling): ``decode_split``, config 3's CBS decode through prehead and
+29. ``multigpu``, data and tensor parallelism on the one card (single-card
+   numbers, no scaling): ``decode_split``, config 3's CBS decode through prehead and
    fused on a mesh of the card listed twice (z split 2 x 10), in bf16 and
    f32: each chunk bit-equal to the unsplit harness on its z slice of the
    same noise, a one-device mesh bit-equal to the unsplit decode, A or B
@@ -188,15 +188,23 @@ one JSON line per phase as it goes:
    rows: loss and params within rtol 1e-5, ms a step per rank and the
    gradient sum's ms; ``ddp_detector``, ResNet-101 at 2 + 2 images on 640 x
    1024, 2 steps, against one process on the 4 images: every loss within
-   rtol 1e-3, C, its backward and D once a step on each rank; and
+   rtol 1e-3, C, its backward and D once a step on each rank;
    ``nccl_world1``, the train CLI as a one-rank NCCL group under
-   ``SSC_COORDINATOR``, its losses equal to the plain run's;
+   ``SSC_COORDINATOR``, its losses equal to the plain run's; and ``tp``
+   (tensor parallelism), config 2's widths as a 1 x 2 mesh at 150 rows and
+   a 2 x 2 mesh at 100, ranks sharing the card over gloo, 2 steps f32 with
+   the clip engaged, against one process on the same rows: metrics, the
+   pre-clip norm and every leaf within TP_RTOL, the leaves held whole over
+   the model axis bit-equal across each model group, no kernel launched;
+   ms a step per rank, ms of the step's tensor-parallel collectives (CUDA
+   events), their count and the peak memory per rank;
 
 then the ``{"kernels": [...]}`` summary, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Exits non-zero at once without a GPU.
 ``python3 chip_smoke.py --split-readings SEED ...`` runs only the build and
-``decode_split`` at each seed (the readings its bounds are set from).
+``decode_split`` at each seed (the readings its bounds are set from);
+``python3 chip_smoke.py --tp-readings`` runs only the ``tp`` part.
 """
 
 from __future__ import annotations
@@ -3047,6 +3055,19 @@ DDP_TIMEOUT = 300.0
 DDP_CAPTIONER_RTOL = 1e-5
 DDP_DETECTOR_RTOL = 1e-3
 NCCL_ITERS = 4
+# tensor parallelism (ROADMAP A10.2) on the one card: config 2's widths as
+# (num_data, num_model, global rows) meshes of ranks sharing the card over
+# gloo, each held to one process on the same rows; TP_STEPS steps with the
+# clip at TP_CLIP (the pre-clip norms read 34-44) and the decoder LSTM
+# training at step 2. TP_RTOL bounds the metrics' and the leaves' relative
+# error, set from the first readings (``--tp-readings``, PERF.md section 6:
+# metrics 0 at 1 x 2 and within 6.7e-8 at 2 x 2, leaves within 2.8e-8);
+# the leaves held whole over the model axis must be bit-equal across each
+# model group.
+TP_MESHES = ((1, 2, 150), (2, 2, 100))
+TP_STEPS = 2
+TP_CLIP = "1.0"
+TP_RTOL = 1e-5
 
 
 @contextlib.contextmanager
@@ -3243,6 +3264,7 @@ def phase_ddp_captioner(dev: torch.device) -> dict:
                                            backend="gloo", timeout=DDP_TIMEOUT)
     launch_s = time.time() - t0
     one = dworker.run_payloads({"captioner": spec}, dev)
+    ranks, one = [dict(r, **r["captioner"]) for r in ranks], dict(one, **one["captioner"])
     ddp_rows(ranks, "metrics")
     loss_err = max(abs(r["loss"] - one["loss"]) / abs(one["loss"]) for r in ranks)
     norm_err = abs(ranks[0]["param_norm_sq"] - one["param_norm_sq"]) / one["param_norm_sq"]
@@ -3283,6 +3305,7 @@ def phase_ddp_detector(dev: torch.device) -> dict:
     reset_kernel_counts()
     reset_detector_counts()
     one = dworker.run_payloads({"detector": spec}, dev)
+    ranks, one = [dict(r, **r["detector"]) for r in ranks], dict(one, **one["detector"])
     ddp_rows(ranks, "det_losses")
     errs = {name: max(abs(r["det_losses"][s][name] - one["det_losses"][s][name])
                       / max(abs(one["det_losses"][s][name]), 1e-6)
@@ -3339,14 +3362,87 @@ def phase_nccl_world1(dev: torch.device) -> None:
             fail(f"nccl_world1: losses differ from the plain run: {losses}")
 
 
+def leaf_rel_errs(got: Path, want: Path) -> dict:
+    """Per leaf of two ``.npz`` trees: ‖got - want‖ / ‖want‖."""
+    a, b = dict(np.load(got)), dict(np.load(want))
+    if a.keys() != b.keys():
+        fail(f"the leaves differ: {sorted(set(a) ^ set(b))}")
+    return {k: float(np.linalg.norm(a[k] - b[k]) / max(np.linalg.norm(b[k]), 1e-12))
+            for k in b}
+
+
+def phase_tp(dev: torch.device) -> None:
+    """Tensor parallelism at config 2's widths (V 10,500, E 600 tied, H 900,
+    P 768, z 150, F 2,048, 100 boxes, 20 tokens), f32 with TF32 off: each
+    mesh of TP_MESHES as ranks sharing the card over gloo, TP_STEPS steps,
+    against one process on the same rows and init: every step's metrics and
+    pre-clip norm, and every leaf (gathered whole), within TP_RTOL; the
+    leaves held whole over the model axis bit-equal across each model
+    group; no kernel launched. Prints ms a step per rank, ms of the step's
+    tensor-parallel collectives per rank (CUDA events around each), their
+    count, and the peak memory per rank against one process's."""
+    overrides = ["OPTIM.NUM_ITERATIONS", "100", "OPTIM.CLIP_GRADIENTS", TP_CLIP,
+                 "OPTIM.BEFORE_UPDATE_DECODER_EVERY", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for n_data, n_model, rows in TP_MESHES:
+            n = n_data * n_model
+            spec = dworker.captioner_spec("full", batch=rows, steps=TP_STEPS,
+                                          num_model=n_model, overrides=overrides,
+                                          save=str(Path(tmp) / "ranks.npz"))
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.time()
+            ranks = dworker.launch_ranks(n, {"tp": spec}, device=str(dev), backend="gloo",
+                                         timeout=DDP_TIMEOUT)
+            launch_s = time.time() - t0
+            # this process's counters hold the earlier phases' launches
+            before = dworker.kernel_launches()
+            one = dworker.run_payloads({"tp": dict(spec, num_model=1,
+                                                   save=str(Path(tmp) / "one.npz"))}, dev)
+            launches = [r["launches"] for r in ranks] + [
+                {k: n - before[k] for k, n in one["launches"].items()}]
+            ranks, one = [r["tp"] for r in ranks], one["tp"]
+            metric_err = {k: max(abs(r["metrics"][s][k] - one["metrics"][s][k])
+                                 / abs(one["metrics"][s][k])
+                                 for r in ranks for s in range(TP_STEPS))
+                          for k in ("loss", "reconstr_loss", "kld_loss", "grad_norm")}
+            leaf_err = leaf_rel_errs(Path(tmp) / "ranks.npz", Path(tmp) / "one.npz")
+            worst = max(leaf_err, key=leaf_err.get)
+            mismatches = sorted({p for r in ranks for p in r["replicated_mismatches"]})
+            emit({"phase": "multigpu", "part": "tp", "backend": "gloo", "mesh": [n_data, n_model],
+                  "devices": str(dev), "global_batch": rows, "steps": TP_STEPS,
+                  "losses_ranks": [m["loss"] for m in ranks[0]["metrics"]],
+                  "losses_one": [m["loss"] for m in one["metrics"]],
+                  "grad_norms": [m["grad_norm"] for m in one["metrics"]], "clip": TP_CLIP,
+                  "metric_rel_err": metric_err, "leaf_rel_err_max": leaf_err[worst],
+                  "leaf_worst": worst, "rtol": TP_RTOL, "replicated_mismatches": mismatches,
+                  "step_ms_ranks": [r["step_ms"] for r in ranks], "step_ms_one": one["step_ms"],
+                  "collective_ms_ranks": [r["collective_ms"] for r in ranks],
+                  "collectives_a_step": ranks[0]["collectives"][-1],
+                  "peak_mem_mib_ranks": [r["peak_mem_bytes"] / 2 ** 20 for r in ranks],
+                  "peak_mem_mib_one": one["peak_mem_bytes"] / 2 ** 20,
+                  "launch_wall_s": launch_s, "note": "ranks share one card: no scaling"})
+            if any(r["metrics"] != ranks[0]["metrics"] for r in ranks):
+                fail(f"tp {n_data}x{n_model}: the ranks disagree on the global metrics")
+            if max(metric_err.values()) > TP_RTOL or leaf_err[worst] > TP_RTOL:
+                fail(f"tp {n_data}x{n_model}: off one process by {metric_err} (metrics), "
+                     f"{leaf_err[worst]:.3g} ({worst})")
+            if mismatches:
+                fail(f"tp {n_data}x{n_model}: replicated leaves differ across a model group: "
+                     f"{mismatches}")
+            if any(any(c.values()) for c in launches):
+                fail(f"tp {n_data}x{n_model}: a kernel ran in a training step: {launches}")
+
+
 def phase_multigpu(dev: torch.device, decode_state) -> dict:
-    """``decode_split``, ``ddp_captioner``, ``ddp_detector`` and
-    ``nccl_world1``; returns the launches of the split decodes and the
+    """``decode_split``, ``ddp_captioner``, ``ddp_detector``, ``nccl_world1``
+    and ``tp``; returns the launches of the split decodes and the
     detector's ranks."""
     launches = phase_decode_split(dev, decode_state)
     phase_ddp_captioner(dev)
     launches.update(phase_ddp_detector(dev))
     phase_nccl_world1(dev)
+    phase_tp(dev)
     return launches
 
 
@@ -3383,6 +3479,10 @@ def main() -> int:
     torch.cuda.set_device(dev)
     if sys.argv[1:2] == ["--split-readings"]:
         return split_readings(dev, [int(a) for a in sys.argv[2:]] or [SPLIT_SEED])
+    if sys.argv[1:] == ["--tp-readings"]:
+        phase_tp(dev)
+        print_card()
+        return 0
 
     phase_build()
     # selection width from the decode's own padded tables: pnbs + E

@@ -7,7 +7,7 @@ out: the search runs on B·n_z rows ordered image-major (row b·n_z + z), so a
 view turns them into the (B, n_z, ...) grid the step expects, and the image
 features stay (B, N, F), never replicated per z or beam.
 
-With a ``DataMesh`` of several devices (``parallel/mesh.py``, the JAX
+With a ``Mesh`` of several devices (``parallel/mesh.py``, the JAX
 harness's ``mesh``) the grid splits over them as ``decode_grid_split``
 says: along z when the device count divides n_z, else along the batch,
 else not at all. Each chunk decodes on its own device with its own copy of
@@ -48,7 +48,7 @@ from style_seqcvae_tpu_torch.models.captioner import (
     make_optimized_step_fn,
 )
 from style_seqcvae_tpu_torch.models.updown_cell import init_cell_state
-from style_seqcvae_tpu_torch.parallel.mesh import DataMesh, decode_grid_split, replicate
+from style_seqcvae_tpu_torch.parallel.mesh import Mesh, decode_grid_split, replicate
 from style_seqcvae_tpu_torch.weights import FAMILIES, param_family
 
 
@@ -123,7 +123,7 @@ def _rows(x, rows: slice):
 class DecodeHarness:
     def __init__(self, params: Dict[str, Any], cfg: CaptionerConfig,
                  device: Optional[Union[str, torch.device]] = None, family: str = "cvae",
-                 mesh: Optional[DataMesh] = None):
+                 mesh: Optional[Mesh] = None):
         """``params`` must already lie on ``device`` (``init_captioner``,
         ``init_baseline`` or ``from_jax_params`` with the same device).
         ``family``: ``"cvae"`` (Style-SeqCVAE, z-sampled) or ``"baseline"``
@@ -151,7 +151,7 @@ class DecodeHarness:
         self.mesh = mesh
         self._chunk_harness: Dict[torch.device, "DecodeHarness"] = {}
         if mesh is not None:
-            for d, p in zip(mesh.devices, replicate(mesh, params)):
+            for d, p in zip(mesh.data_devices, replicate(mesh, params)):
                 self._chunk_harness.setdefault(d, DecodeHarness(p, cfg, d, family))
 
     def _init_state(self, rows: int, dtype: torch.dtype):

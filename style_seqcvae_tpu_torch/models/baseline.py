@@ -29,6 +29,10 @@ from style_seqcvae_tpu_torch.models.captioner import (
 )
 from style_seqcvae_tpu_torch.models.updown_cell import _attend, _concat, image_feature_stats
 from style_seqcvae_tpu_torch.ops.lstm import LSTMCellParams, init_lstm_cell, lstm_cell
+from style_seqcvae_tpu_torch.parallel.tensor_parallel import (
+    vocab_parallel_embedding,
+    vocab_parallel_nll,
+)
 
 
 class BaselineCellParams(NamedTuple):
@@ -86,24 +90,25 @@ def baseline_cell_step(params: BaselineCellParams, token_embedding: torch.Tensor
                        state: BaselineState, *, image_features: torch.Tensor,
                        projected_image_features: torch.Tensor,
                        averaged_image_features: torch.Tensor,
-                       image_features_mask: torch.Tensor
+                       image_features_mask: torch.Tensor, model_group=None
                        ) -> Tuple[torch.Tensor, BaselineState]:
     """One step on ``token_embedding`` (B, ..., E) and a state of (B, ..., H)
     fields, any inner grid dims; returns ``(h2, new_state)``. Each LSTM's
     input is concatenated in its parts' promoted dtype, as
-    ``jnp.concatenate`` does."""
+    ``jnp.concatenate`` does. ``model_group``: the group over which the
+    LSTMs' gate matrices are column blocks, under tensor parallelism."""
     grid = tuple(token_embedding.shape[:-1])
     avg = averaged_image_features.reshape(
         (averaged_image_features.shape[0],) + (1,) * (len(grid) - 1)
         + tuple(averaged_image_features.shape[1:]))
     h1, c1 = lstm_cell(params.attention_lstm,
                        _concat([token_embedding, avg, state.h1, state.h2], grid), state.h1,
-                       state.c1)
+                       state.c1, model_group)
     attn_w = attention_weights(params.attention, h1, projected_image_features,
                                image_features_mask)
     attended = _attend(attn_w, image_features)
     h2, c2 = lstm_cell(params.language_lstm, _concat([attended, h1, state.h2], grid), state.h2,
-                       state.c2)
+                       state.c2, model_group)
     return h2, BaselineState(h1, c1, h2, c2)
 
 
@@ -114,12 +119,15 @@ def init_baseline_state(batch_shape: Tuple[int, ...], hidden_size: int, *,
 
 
 def baseline_train_forward(params: Dict[str, Any], cfg: CaptionerConfig,
-                           batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                           batch: Dict[str, torch.Tensor], model_group=None
+                           ) -> Dict[str, torch.Tensor]:
     """Teacher-forced forward (JAX ``baseline.py:106-136``): a Python loop
     over the ``T + 1`` steps of the boundary-wrapped caption. ``batch``:
     ``image_features`` (B, N, F) and ``caption_tokens`` (B, T) padded with
     ``cfg.pad_index`` (other entries are ignored). Returns the per-sequence
-    ``loss``, the length-scaled masked cross entropy."""
+    ``loss``, the length-scaled masked cross entropy. Tensor parallel: as
+    ``captioner.train_forward``, on this rank's blocks of ``params`` over
+    ``model_group``."""
     image_features = batch["image_features"]
     tokens = add_boundary_tokens(batch["caption_tokens"].long(), cfg.pad_index,
                                  cfg.boundary_index)
@@ -130,18 +138,19 @@ def baseline_train_forward(params: Dict[str, Any], cfg: CaptionerConfig,
     proj = project_image_features(params["cell"].attention, image_features)
     state = init_baseline_state((B,), cfg.hidden_size, device=image_features.device,
                                 dtype=image_features.dtype)
-    token_embs = params["embedding"][tokens[:, :-1].T]        # (T+1, B, E), one gather
+    token_embs = vocab_parallel_embedding(params["embedding"], tokens[:, :-1].T,
+                                          cfg.vocab_size, model_group)   # (T+1, B, E)
     logits = []
     for t in range(token_embs.shape[0]):
         h2, state = baseline_cell_step(
             params["cell"], token_embs[t], state, image_features=image_features,
             projected_image_features=proj, averaged_image_features=avg,
-            image_features_mask=mask)
-        logits.append(output_logits(params, cfg, h2))
-    log_probs = torch.log_softmax(torch.stack(logits, dim=1), dim=-1)   # (B, T+1, V)
+            image_features_mask=mask, model_group=model_group)
+        logits.append(output_logits(params, cfg, h2, model_group))
     targets = tokens[:, 1:]
     target_mask = tokens_mask[:, 1:].float()
-    nll = -torch.gather(log_probs, -1, targets[..., None])[..., 0]
+    nll = vocab_parallel_nll(torch.stack(logits, dim=1), targets, cfg.vocab_size,
+                             model_group)                               # (B, T+1)
     lengths = target_mask.sum(dim=1)
     per_seq = (nll * target_mask).sum(dim=1) / (lengths + 1e-13)
     return {"loss": lengths * per_seq}

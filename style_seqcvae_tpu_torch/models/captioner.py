@@ -37,6 +37,12 @@ from style_seqcvae_tpu_torch.models.updown_cell import (
     init_cell_state,
 )
 from style_seqcvae_tpu_torch.ops.lstm import gate_math
+from style_seqcvae_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    is_sharded,
+    vocab_parallel_embedding,
+    vocab_parallel_nll,
+)
 
 
 class CaptionerConfig(NamedTuple):
@@ -175,11 +181,20 @@ def tied_head_projection(params: Dict[str, Any], h_dec: torch.Tensor) -> torch.T
     return torch.tanh(torch.matmul(h_dec, proj["w"]) + proj["b"])
 
 
-def output_logits(params: Dict[str, Any], cfg: CaptionerConfig, h_dec: torch.Tensor) -> torch.Tensor:
-    """Hidden state → vocabulary logits."""
+def output_logits(params: Dict[str, Any], cfg: CaptionerConfig, h_dec: torch.Tensor,
+                  model_group=None) -> torch.Tensor:
+    """Hidden state → vocabulary logits; under tensor parallelism, where
+    the embedding's rows (tied) or ``output_layer``'s columns and bias are
+    this rank's block of the vocabulary, the logits of that block (the
+    input's gradient summed over ``model_group``)."""
     if cfg.tie_embeddings:
-        return torch.matmul(tied_head_projection(params, h_dec), params["embedding"].T)
+        x, emb = tied_head_projection(params, h_dec), params["embedding"]
+        if is_sharded(emb.shape[0], cfg.vocab_size, model_group):
+            x = copy_to_model(x, model_group)
+        return torch.matmul(x, emb.T)
     out = params["output_layer"]
+    if is_sharded(out["w"].shape[1], cfg.vocab_size, model_group):
+        h_dec = copy_to_model(h_dec, model_group)
     return torch.matmul(h_dec, out["w"]) + out["b"]
 
 
@@ -232,8 +247,8 @@ def _per_step_kld(cfg: CaptionerConfig, q_mean, q_log_var, prior_mean, prior_log
 
 
 def train_forward(params: Dict[str, Any], cfg: CaptionerConfig, batch: Dict[str, torch.Tensor],
-                  rng: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None
-                  ) -> Dict[str, torch.Tensor]:
+                  rng: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None,
+                  model_group=None) -> Dict[str, torch.Tensor]:
     """Teacher-forced training forward (JAX ``captioner.py:240-317``): a
     Python loop over the ``T + 1`` steps of the boundary-wrapped caption in
     place of the ``lax.scan``.
@@ -244,7 +259,13 @@ def train_forward(params: Dict[str, Any], cfg: CaptionerConfig, batch: Dict[str,
     a (T+1, B, z) stack, when given, else drawn from the ``torch.Generator``
     ``rng`` step by step. Returns the per-sequence ``loss`` (the
     length-scaled masked cross entropy, ``lengths · Σ(nll·mask) / (lengths +
-    1e-13)``) and ``kld`` (the masked per-step KL summed over steps)."""
+    1e-13)``) and ``kld`` (the masked per-step KL summed over steps).
+
+    Tensor parallel: ``params`` holds this rank's blocks
+    (``parallel/mesh.py::shard_params``) and ``model_group`` their group;
+    the embedding lookup, the LSTMs, the head and the NLL run on the
+    blocks (``parallel/tensor_parallel.py``), every other value is
+    replicated over the group."""
     image_features = batch["image_features"]
     sentiment = batch.get("sentiment")
     obj_att_embeds = batch.get("obj_att_embeds")
@@ -264,7 +285,8 @@ def train_forward(params: Dict[str, Any], cfg: CaptionerConfig, batch: Dict[str,
 
     state = init_cell_state((B,), cfg.hidden_size, device=image_features.device,
                             dtype=image_features.dtype)
-    token_embs = params["embedding"][tokens[:, :-1].T]        # (T+1, B, E), one gather
+    token_embs = vocab_parallel_embedding(params["embedding"], tokens[:, :-1].T,
+                                          cfg.vocab_size, model_group)   # (T+1, B, E)
     logits, klds = [], []
     for t in range(num_steps):
         h_dec, state, q_mean, q_log_var, p_mean, _ = cell_step(
@@ -277,8 +299,8 @@ def train_forward(params: Dict[str, Any], cfg: CaptionerConfig, batch: Dict[str,
             sentiment_vae=cfg.sentiment_vae, simple_vae=cfg.simple_vae,
             latent_embedding=cfg.latent_embedding,
             sentiment=sentiment, obj_att_embeds=obj_att_embeds,
-            prior_mean=prior_mean, prior_var=prior_var)
-        logits.append(output_logits(params, cfg, h_dec))
+            prior_mean=prior_mean, prior_var=prior_var, model_group=model_group)
+        logits.append(output_logits(params, cfg, h_dec, model_group))
         klds.append(_per_step_kld(cfg, q_mean, q_log_var, p_mean, prior_log_var))
     logits_bt = torch.stack(logits, dim=1)                    # (B, T+1, V)
     kld_t = torch.stack(klds, dim=1)                          # (B, T+1)
@@ -286,8 +308,7 @@ def train_forward(params: Dict[str, Any], cfg: CaptionerConfig, batch: Dict[str,
 
     targets = tokens[:, 1:]
     target_mask = tokens_mask[:, 1:].float()
-    log_probs = torch.log_softmax(logits_bt, dim=-1)
-    nll = -torch.gather(log_probs, -1, targets[..., None])[..., 0]
+    nll = vocab_parallel_nll(logits_bt, targets, cfg.vocab_size, model_group)
     lengths = target_mask.sum(dim=1)
     per_seq = (nll * target_mask).sum(dim=1) / (lengths + 1e-13)
     return {"loss": lengths * per_seq, "kld": klds_masked.sum(dim=1)}

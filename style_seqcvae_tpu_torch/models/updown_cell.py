@@ -126,6 +126,7 @@ def cell_step(
     prior_mean: Optional[torch.Tensor] = None,      # (B, z) or broadcastable
     prior_var: Optional[torch.Tensor] = None,       # (B, z) or broadcastable
     eps: Optional[torch.Tensor] = None,             # z-noise
+    model_group=None,
 ):
     """One step of the cell (JAX ``models/updown_cell.py:146-245``). Returns
     ``(h_dec, new_state, q_mean, q_log_var, prior_mean, attn_w)``, ``q_*``
@@ -140,7 +141,9 @@ def cell_step(
     parts' promoted dtype, as ``jnp.concatenate`` does: under bf16 the prior
     (at inference in modes 0 and 1) and the posterior mean (in training, an
     f32 product plus a bf16 bias) are f32, so z and the decoder LSTM's whole
-    input stay f32."""
+    input stay f32. ``model_group``: the group over which the LSTMs' gate
+    matrices are column blocks (``ops/lstm.py``), under tensor
+    parallelism."""
     if training and torch.is_tensor(rng):
         raise TypeError("cell_step(training=True) takes eps or a torch.Generator, "
                         "not a noise tensor in rng")
@@ -152,7 +155,7 @@ def cell_step(
 
     attn_in = _concat([token_embedding, bcast(averaged_image_features), state.h1, state.h_dec],
                       grid)
-    h1, c1 = lstm_cell(params.attention_lstm, attn_in, state.h1, state.c1)
+    h1, c1 = lstm_cell(params.attention_lstm, attn_in, state.h1, state.c1, model_group)
     attn_w = attention_weights(params.attention, h1, projected_image_features,
                                image_features_mask)
     attended = _attend(attn_w, image_features)
@@ -177,7 +180,8 @@ def cell_step(
 
     if training:
         enc_in = _concat([attended, h1, state.h_dec] + ([c] if c is not None else []), grid)
-        h_enc, c_enc = lstm_cell(params.encoder_lstm, enc_in, state.h_enc, state.c_enc)
+        h_enc, c_enc = lstm_cell(params.encoder_lstm, enc_in, state.h_enc, state.c_enc,
+                                 model_group)
         # f32 products plus the bias, as JAX's preferred_element_type=f32
         q_mean = torch.matmul(h_enc.float(), params.fc_mean_w.float()) + params.fc_mean_b
         q_log_var = (torch.matmul(h_enc.float(), params.fc_log_var_w.float())
@@ -197,7 +201,8 @@ def cell_step(
     z = eps * torch.sqrt(var) + mean
 
     dec_in = _concat([attended, h1, state.h_dec] + ([c] if c is not None else []) + [z], grid)
-    h_dec, c_dec = lstm_cell(params.decoder_lstm, dec_in, state.h_dec, state.c_dec)
+    h_dec, c_dec = lstm_cell(params.decoder_lstm, dec_in, state.h_dec, state.c_dec,
+                             model_group)
     new_state = CellState(h1=h1, c1=c1, h_enc=h_enc, c_enc=c_enc, h_dec=h_dec, c_dec=c_dec)
     if training:
         return h_dec, new_state, q_mean, q_log_var, prior_mean, attn_w

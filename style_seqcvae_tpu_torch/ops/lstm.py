@@ -2,7 +2,9 @@
 
 The input and hidden weights are one ``(input_size + hidden, 4*hidden)``
 matrix with gates in (i, f, g, o) order and the bias pre-summed
-(``b_ih + b_hh``), so each step is one matmul.
+(``b_ih + b_hh``), so each step is one matmul. Under tensor parallelism ``w`` is this rank's
+block of gate columns (JAX's ``P(None, "model")``) and the bias stays
+whole.
 """
 
 from __future__ import annotations
@@ -11,14 +13,16 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from style_seqcvae_tpu_torch.parallel.tensor_parallel import sharded_matmul
+
 
 class LSTMCellParams(NamedTuple):
-    w: torch.Tensor  # (input_size + hidden_size, 4 * hidden_size)
+    w: torch.Tensor  # (input_size + hidden_size, 4 * hidden_size), or a column block
     b: torch.Tensor  # (4 * hidden_size,)
 
     @property
     def hidden_size(self) -> int:
-        return self.w.shape[1] // 4
+        return self.b.shape[0] // 4
 
     @property
     def input_size(self) -> int:
@@ -49,8 +53,11 @@ def gate_math(gates: torch.Tensor, h: torch.Tensor, c: torch.Tensor
 
 
 def lstm_cell(params: LSTMCellParams, x: torch.Tensor, h: torch.Tensor,
-              c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One LSTM step. x: (..., input_size); h, c: (..., hidden_size).
+              c: torch.Tensor, model_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One LSTM step. x: (..., input_size); h, c: (..., hidden_size). A
+    ``w`` that is this rank's block of gate columns multiplies the input
+    (its gradient summed over ``model_group``) and the block's gates are
+    all-gathered to the whole 4H before the bias and the gate math.
 
     As JAX's ``lstm_cell`` (``ops/lstm.py:47-66``), the input, the hidden
     state and the weight meet in their promoted dtype (an f32 input, as the
@@ -59,5 +66,6 @@ def lstm_cell(params: LSTMCellParams, x: torch.Tensor, h: torch.Tensor,
     dtype = torch.promote_types(torch.promote_types(x.dtype, h.dtype), params.w.dtype)
     xh = torch.cat([x.to(dtype), h.to(dtype)], dim=-1)
     # one matmul (f32 accumulation inside), gate math in the working dtype
-    gates = torch.matmul(xh, params.w.to(dtype)).to(h.dtype) + params.b
+    gates = sharded_matmul(xh, params.w.to(dtype), params.b.shape[0],
+                           model_group).to(h.dtype) + params.b
     return gate_math(gates, h, c)

@@ -1,6 +1,8 @@
-"""The sums a data-parallel step makes over its process group: the
-gradients (JAX's implicit ``psum`` under ``jit``), the metrics and the
-global denominators of the losses.
+"""The collectives a training step makes over its process groups: the
+gradients' sum over the data group (JAX's implicit ``psum`` under
+``jit``), the metrics, the global denominators of the losses, the global
+gradient norm over sharded leaves, and the all-gather and f32 all-reduce
+that ``mesh.gather_params`` and ``tensor_parallel`` build on.
 
 Gradients are summed, never averaged: every loss term divides its local
 numerator by its global denominator (the captioner's means by the global
@@ -11,7 +13,7 @@ fails raises; nothing falls back to the rank's own values.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -58,8 +60,59 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor], group,
 def reduce_gradients(params: Sequence[torch.Tensor], group) -> None:
     """Sum the present ``.grad`` of ``params`` over ``group`` (before the
     clip, which must see the global gradient). Every rank has the same
-    gradients present: they follow the same code path."""
+    gradients present: they follow the same code path. The trainer passes
+    the replicated and the model-sharded leaves; a leaf sharded over the
+    data axis (FSDP) has its sum from ``tensor_parallel.gather_from_data``'s
+    backward and is left out."""
     all_reduce_sum_([p.grad for p in params if p.grad is not None], group)
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The blocks that the ranks of ``group`` hold, concatenated along
+    ``dim`` in the group's rank order (``x`` itself without a group)."""
+    n = world_size(group)
+    if n == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A new tensor: ``x`` reduced over ``group`` in f32 (a bf16 partial
+    sum is summed in f32 and cast after), in ``x``'s dtype."""
+    y = x.detach().to(torch.float32, copy=True)
+    if world_size(group) > 1:
+        dist.all_reduce(y, op=op, group=group)
+    return y.to(x.dtype)
+
+
+def global_grad_norm(named: Sequence[Tuple[str, torch.Tensor]],
+                     groups: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """The f32 norm of the gradients of ``named`` (path, leaf) with every
+    element counted once: ``Σ replicated ‖g‖² + Σ_group all_reduce(Σ
+    local-shard ‖g‖²)``, ``groups`` mapping the path of a sharded leaf to
+    the group it is sharded over (absent: replicated). A leaf without
+    ``.grad`` adds 0; every group of ``groups`` is summed over, in the
+    order of its first leaf, so every rank makes the same calls."""
+    groups = groups or {}
+    dev = named[0][1].device
+    local = torch.zeros((), dtype=torch.float32, device=dev)
+    sharded: Dict[int, List[Any]] = {}
+    for path, p in named:
+        sq = None if p.grad is None else p.grad.detach().float().square().sum()
+        g = groups.get(path)
+        if g is None:
+            local = local if sq is None else local + sq
+            continue
+        entry = sharded.setdefault(id(g), [g, torch.zeros((), dtype=torch.float32,
+                                                         device=dev)])
+        if sq is not None:
+            entry[1] = entry[1] + sq
+    for g, sq in sharded.values():
+        local = local + all_reduce(sq, g)
+    return local.sqrt()
 
 
 def reduce_scalars(values: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:

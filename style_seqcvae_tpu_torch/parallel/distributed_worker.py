@@ -1,5 +1,5 @@
-"""Real multi-process runs of the data-parallel layer (counterpart of
-``style_seqcvae_tpu/parallel/distributed_worker.py``).
+"""Real multi-process runs of the data- and tensor-parallel layers
+(counterpart of ``style_seqcvae_tpu/parallel/distributed_worker.py``).
 
 This module is both
 
@@ -8,33 +8,41 @@ This module is both
   [--backend gloo]``) that joins the process group through
   ``maybe_initialize_distributed`` (the ``SSC_*`` environment), runs each
   payload on its rows of a deterministic global batch (the captioner's
-  ``rank::world`` stride, as the train CLI's ``process_shard`` gives them;
-  the detector's contiguous block of images, ``mesh.local_rows``, as the
-  detector train CLI loads them) and writes the global results as JSON; and
-* a **launcher** (:func:`launch_two_process_run`) that starts two such
-  workers on this machine and collects their results.
+  ``d::num_data`` stride of its data index, as the train CLI's
+  ``process_shard`` gives them; the detector's contiguous block of images,
+  ``mesh.local_rows``, as the detector train CLI loads them) and writes
+  the global results as JSON, one entry a payload; and
+* a **launcher** (:func:`launch_ranks`, :func:`launch_two_process_run`)
+  that starts such workers on this machine and collects their results.
 
 The payloads run unchanged in one process, on the whole batch, which is
-what the two ranks are held to:
+what the ranks are held to:
 
-* ``captioner``: train steps of the captioner (``make_train_step`` with the
-  gradient sum) with the JAX worker's checkpoint hooks: ``SSC_CKPT_DIR`` (a
-  ``CheckpointManager`` directory), ``SSC_CKPT_RESTORE`` (a checkpoint
-  restored into the state before the steps: a one-process save restored by
-  two ranks, or the reverse), ``SSC_CKPT_SAVE`` (saved after the steps);
-  ``SSC_STEPS`` overrides the spec's steps (0: restore and report only);
+* ``captioner``: train steps of the captioner or, with ``family``
+  ``"baseline"``, of the baseline, on a ``(num_data, num_model)`` mesh of
+  the ranks (the spec's ``num_model``; ``fsdp`` shards the FSDP leaves
+  over the data axis), with the checkpoint hooks of JAX's worker as spec
+  entries: ``ckpt_dir`` (a ``CheckpointManager`` directory),
+  ``ckpt_restore`` (a checkpoint restored into the state before the
+  steps: a one-process save restored by the ranks, or the reverse) and
+  ``ckpt_save`` (saved after the steps); ``steps`` 0 restores and reports
+  only. JAX's worker takes ``num_model=2`` at four or more devices;
+  :func:`captioner_spec` leaves the choice to the caller;
 * ``detector``: SGD steps of the detector (the train CLI's step, with the
   global loss denominators and the gradient sum).
 
-A payload's spec (``captioner_spec`` / ``detector_spec``, a JSON file
-``<payload>.json`` in ``--spec-dir``) gives the model, the global batch
-size, the steps and, optionally, ``.npz`` files of the initial parameters
-in the JAX tree's layout, the global batch and the noise (the captioner's
-(steps, T+1, B, z) z-noise, the detector's (steps, B, ...) uniforms), each
-rank slicing its rows, and a path where rank 0 saves the final parameters.
-Without them the parameters come from a seeded init on the device and the
-batch from a seeded numpy generator, identical in every process; the noise
-then comes from the generators, the global draw sliced per rank.
+A spec (``captioner_spec`` / ``detector_spec``, a JSON file
+``<name>.json`` in ``--spec-dir``; its ``payload`` names the function,
+default the name) gives the model, the global batch size, the steps and,
+optionally, ``.npz`` files of the initial parameters in the JAX tree's
+layout, the global batch and the noise (the captioner's (steps, T+1, B, z)
+z-noise, the detector's (steps, B, ...) uniforms), each rank slicing its
+rows, a path where rank 0 saves the final parameters (gathered whole) and
+a directory where every rank saves its own blocks (``save_local``,
+``rank<r>.npz``). Without them the parameters come from a seeded init on
+the device and the batch from a seeded numpy generator, identical in every
+process; the noise then comes from the generators, the global draw sliced
+per data index.
 """
 
 from __future__ import annotations
@@ -61,8 +69,9 @@ _FULL_CAPTIONER = dict(vocab_size=10500, image_feature_size=2048, embedding_size
 
 def captioner_spec(size: str = "tiny", **kw) -> Dict[str, Any]:
     """``tiny``: the JAX worker's payload (16 rows); ``full``: config 2's
-    widths at a global batch of 150 over 100 boxes, 3 steps. ``kw``
-    overrides any entry."""
+    widths at a global batch of 150 over 100 boxes, 3 steps. The cvae
+    family on a data axis alone; ``kw`` overrides any entry (``family``,
+    ``num_model``, ``fsdp``, the checkpoint hooks, ...)."""
     if size == "tiny":
         spec = dict(model=_TINY_CAPTIONER, batch=16, boxes=4, steps=1,
                     overrides=["MODEL.EMBEDDING_SIZE", "8", "OPTIM.NUM_ITERATIONS", "100"])
@@ -71,7 +80,9 @@ def captioner_spec(size: str = "tiny", **kw) -> Dict[str, Any]:
                     overrides=["OPTIM.NUM_ITERATIONS", "100"])
     else:
         raise ValueError(f"size must be 'tiny' or 'full', got {size!r}")
-    spec.update(seed=0, params=None, batch_npz=None, eps=None, save=None)
+    spec.update(payload="captioner", family="cvae", num_model=1, fsdp=False, seed=0,
+                params=None, batch_npz=None, eps=None, save=None, save_local=None,
+                ckpt_dir=None, ckpt_restore=None, ckpt_save=None)
     spec.update(kw)
     return spec
 
@@ -95,7 +106,7 @@ def detector_spec(size: str = "tiny", **kw) -> Dict[str, Any]:
         spec = dict(model=None, batch=4, image_hw=[640, 1024], steps=2)
     else:
         raise ValueError(f"size must be 'tiny' or 'full', got {size!r}")
-    spec.update(seed=2, params=None, batch_npz=None, draws=None, save=None,
+    spec.update(payload="detector", seed=2, params=None, batch_npz=None, draws=None, save=None,
                 optimizer=dict(lr=1e-2, momentum=0.9, weight_decay=1e-4, clip_norm=10.0))
     spec.update(kw)
     return spec
@@ -203,28 +214,58 @@ def _allreduce_ms(grads: List[torch.Tensor], group, dev: torch.device,
     return sorted(ms)[len(ms) // 2]
 
 
-def _mesh(dev: torch.device):
+def _mesh(dev: torch.device, num_model: int = 1):
     from style_seqcvae_tpu_torch.parallel.mesh import make_mesh
     from style_seqcvae_tpu_torch.parallel.multihost import process_count
 
-    return make_mesh(-1, 1, [dev]) if process_count() > 1 else None
+    if process_count() > 1:
+        return make_mesh(-1, num_model, [dev])
+    if num_model != 1:
+        raise ValueError(f"num_model {num_model} needs a process group of its ranks")
+    return None
+
+
+def _replicated_mismatches(state) -> List[str]:
+    """The leaves held whole over the model axis whose values differ from
+    those of another rank of this rank's model group (bit for bit)."""
+    from style_seqcvae_tpu_torch.parallel.collectives import all_gather
+    from style_seqcvae_tpu_torch.parallel.mesh import MODEL_AXIS
+    from style_seqcvae_tpu_torch.weights import named_leaves
+
+    mesh = state.mesh
+    if mesh is None or mesh.model_group is None:
+        return []
+    bad = []
+    for path, t in named_leaves(state.params):
+        if MODEL_AXIS in state.specs[path]:
+            continue
+        copies = all_gather(t.detach()[None], mesh.model_group, 0)
+        if not all(torch.equal(c, copies[0]) for c in copies):
+            bad.append(path)
+    return bad
 
 
 def run_captioner_payload(spec: Dict[str, Any], device: Union[str, torch.device]
                           ) -> Dict[str, Any]:
-    """The captioner's train steps on this process's rows of the spec's
-    global batch; returns the global metrics of every step, the params'
-    squared norm, host ms a step and the gradient sum's ms."""
+    """The captioner's (or the baseline's) train steps on this rank's rows
+    of the spec's global batch; returns the global metrics and the
+    gradient norm before the clip of every step, the params' squared norm
+    (whole leaves), host ms a step, the gradient sum's ms, the leaves held
+    whole over the model axis that differ across the model group, and, on
+    the card, the peak memory it added to what the caller held; with a
+    model axis, the tensor-parallel collectives' count and ms a step."""
     from style_seqcvae_tpu_torch.config import Config
+    from style_seqcvae_tpu_torch.models.baseline import init_baseline
     from style_seqcvae_tpu_torch.models.captioner import CaptionerConfig, init_captioner
-    from style_seqcvae_tpu_torch.parallel.mesh import replicate, shard_batch
-    from style_seqcvae_tpu_torch.parallel.multihost import (
-        process_count,
-        process_index,
-        rank_device,
-    )
+    from style_seqcvae_tpu_torch.parallel import tensor_parallel
+    from style_seqcvae_tpu_torch.parallel.mesh import gather_params, shard_batch
+    from style_seqcvae_tpu_torch.parallel.multihost import process_index, rank_device
     from style_seqcvae_tpu_torch.training.checkpointing import CheckpointManager
-    from style_seqcvae_tpu_torch.training.trainer import create_train_state, make_train_step
+    from style_seqcvae_tpu_torch.training.trainer import (
+        create_train_state,
+        make_baseline_train_step,
+        make_train_step,
+    )
     from style_seqcvae_tpu_torch.weights import (
         from_jax_params,
         load_params_npz,
@@ -232,52 +273,71 @@ def run_captioner_payload(spec: Dict[str, Any], device: Union[str, torch.device]
     )
 
     dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)       # what the caller already holds
     cfg = CaptionerConfig(**spec["model"])
     config = Config(config_override=spec["overrides"])
+    baseline = spec["family"] == "baseline"
     if spec["params"]:
         params = from_jax_params(load_params_npz(spec["params"]), device=dev)
     else:
-        params = init_captioner(cfg, seed=spec["seed"], device=dev)
-    state = create_train_state(params, config, cfg, seed=spec["seed"] + 1, device=dev)
-    mesh = _mesh(dev)
-    if mesh is not None:
-        replicate(mesh, state.params)
-    step = make_train_step(cfg, config.MODEL.KLD_WEIGHT, mesh=mesh)
+        init = init_baseline if baseline else init_captioner
+        params = init(cfg, seed=spec["seed"], device=dev)
+    mesh = _mesh(dev, spec["num_model"])
+    state = create_train_state(params, config, cfg, seed=spec["seed"] + 1, device=dev,
+                               mesh=mesh, shard_params_over_data=spec["fsdp"])
+    del params
+    step = (make_baseline_train_step(cfg, mesh=mesh) if baseline
+            else make_train_step(cfg, config.MODEL.KLD_WEIGHT, mesh=mesh))
 
     B = spec["batch"]
     global_batch = (dict(np.load(spec["batch_npz"])) if spec["batch_npz"]
                     else caption_batch(spec["model"], B, spec["boxes"], spec["seed"]))
-    if B % process_count():
-        raise ValueError(f"{B} rows do not divide over {process_count()} processes")
-    rows = slice(process_index(), None, process_count())
+    n_data, d = (1, 0) if mesh is None else (mesh.num_data, mesh.data_index)
+    if B % n_data:
+        raise ValueError(f"{B} rows do not divide over {n_data} data indices")
+    rows = slice(d, None, n_data)
     local = {k: v[rows] for k, v in global_batch.items()}
     batch = shard_batch(mesh, local) if mesh else {k: torch.from_numpy(v).to(dev)
                                                     for k, v in local.items()}
     eps = None if not spec["eps"] else torch.from_numpy(np.load(spec["eps"])["eps"])
 
-    ckpt_dir = os.environ.get("SSC_CKPT_DIR", "")
-    n_steps = int(os.environ.get("SSC_STEPS", spec["steps"]))
-    mgr = CheckpointManager(ckpt_dir, keep=0) if ckpt_dir else None
-    if mgr is not None and os.environ.get("SSC_CKPT_RESTORE"):
-        state = mgr.restore(os.environ["SSC_CKPT_RESTORE"], state)
+    mgr = CheckpointManager(spec["ckpt_dir"], keep=0) if spec["ckpt_dir"] else None
+    if mgr is not None and spec["ckpt_restore"]:
+        state = mgr.restore(spec["ckpt_restore"], state)
 
-    metrics, step_ms = [], []
-    for s in range(n_steps):
-        e = None if eps is None else eps[s][:, rows].to(dev)
-        (state, m), ms = _synced_ms(lambda: step(state, batch, eps=e), dev)
-        metrics.append({k: float(v) for k, v in m.items()})
+    metrics, step_ms, coll_ms, coll_counts = [], [], [], []
+    for s in range(spec["steps"]):
+        kw = {} if baseline else {"eps": None if eps is None else eps[s][:, rows].to(dev)}
+        with tensor_parallel.traced() as trace:
+            (state, m), ms = _synced_ms(lambda: step(state, batch, **kw), dev)
+        metrics.append(dict({k: float(v) for k, v in m.items()},
+                            grad_norm=float(state.grad_norm)))
         step_ms.append(ms)
-    out = {"param_norm_sq": _norm_sq(state.params), "opt_step": state.step,
+        coll_ms.append(trace.ms())
+        coll_counts.append(trace.counts)
+    whole = state.params if mesh is None else gather_params(mesh, state.params, state.specs)
+    out = {"param_norm_sq": _norm_sq(whole), "opt_step": state.step,
            "metrics": metrics, "step_ms": step_ms,
            "allreduce_ms": _allreduce_ms([p.grad for _, p in state.tx.named
                                           if p.grad is not None],
-                                         None if mesh is None else mesh.group, dev)}
+                                         None if mesh is None else mesh.data_group, dev),
+           "replicated_mismatches": _replicated_mismatches(state),
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev) - held
+                              if dev.type == "cuda" else None)}
+    if mesh is not None and mesh.num_model > 1:
+        out.update(collective_ms=coll_ms, collectives=coll_counts)
     if metrics:
         out.update(metrics[-1])
-    if mgr is not None and os.environ.get("SSC_CKPT_SAVE"):
-        mgr.save(state, os.environ["SSC_CKPT_SAVE"])
+    if mgr is not None and spec["ckpt_save"]:
+        mgr.save(state, spec["ckpt_save"])
     if spec["save"] and process_index() == 0:
-        save_params_npz(state.params, spec["save"])
+        save_params_npz(whole, spec["save"])
+    if spec["save_local"]:
+        os.makedirs(spec["save_local"], exist_ok=True)
+        save_params_npz(state.params, os.path.join(spec["save_local"],
+                                                   f"rank{process_index()}.npz"))
     return out
 
 
@@ -358,24 +418,32 @@ def run_payloads(specs: Dict[str, Dict[str, Any]], device: Union[str, torch.devi
                  ) -> Dict[str, Any]:
     from style_seqcvae_tpu_torch.parallel.multihost import process_count, process_index
 
+    """Run each spec's payload in turn; the results by the specs' names,
+    beside this process's place and its kernels' launch counters."""
     out: Dict[str, Any] = {"process_index": process_index(),
                            "process_count": process_count(), "device": str(device)}
     for name, spec in specs.items():
-        out.update(PAYLOADS[name](spec, device))
+        out[name] = PAYLOADS[spec.get("payload", name)](spec, device)
     out["launches"] = kernel_launches()
     return out
 
 
 def launch_two_process_run(payloads: Union[Sequence[str], Dict[str, Dict[str, Any]]] = (
         "captioner",), device: str = "cpu", backend: Optional[str] = None,
-        timeout: float = 300.0, out_dir: Optional[str] = None,
-        env: Optional[Dict[str, str]] = None) -> List[Dict[str, Any]]:
-    """Start two workers as ranks 0 and 1 of a process group on this
-    machine (``SSC_*`` environment on a free port), both on ``device`` (the
-    CPU, or one card for both ranks, which needs ``backend="gloo"``), and
+        timeout: float = 300.0, out_dir: Optional[str] = None) -> List[Dict[str, Any]]:
+    """:func:`launch_ranks` with two ranks."""
+    return launch_ranks(2, payloads, device, backend, timeout, out_dir)
+
+
+def launch_ranks(n: int, payloads: Union[Sequence[str], Dict[str, Dict[str, Any]]] = (
+        "captioner",), device: str = "cpu", backend: Optional[str] = None,
+        timeout: float = 300.0, out_dir: Optional[str] = None) -> List[Dict[str, Any]]:
+    """Start ``n`` workers as ranks 0 … n-1 of a process group on this
+    machine (``SSC_*`` environment on a free port), all on ``device`` (the
+    CPU, or one card for every rank, which needs ``backend="gloo"``), and
     run ``payloads`` (names with their tiny specs, or name → spec). Returns
-    the two results, rank 0 first. Raises when a worker fails or either
-    outlives ``timeout`` seconds (both are then killed)."""
+    the results, rank 0 first. Raises when a worker fails or one outlives
+    ``timeout`` seconds (all are then killed)."""
     from style_seqcvae_tpu_torch.parallel.multihost import free_port
 
     specs = (dict(payloads) if isinstance(payloads, dict)
@@ -389,11 +457,11 @@ def launch_two_process_run(payloads: Union[Sequence[str], Dict[str, Dict[str, An
     port = free_port()
     procs, outs, logs = [], [], []
     try:
-        for rank in range(2):
+        for rank in range(n):
             outs.append(os.path.join(out_dir, f"worker{rank}.json"))
             logs.append(os.path.join(out_dir, f"worker{rank}.log"))
-            wenv = dict(os.environ, **(env or {}))
-            wenv.update(SSC_COORDINATOR=f"localhost:{port}", SSC_NUM_PROCESSES="2",
+            wenv = dict(os.environ)
+            wenv.update(SSC_COORDINATOR=f"localhost:{port}", SSC_NUM_PROCESSES=str(n),
                         SSC_PROCESS_ID=str(rank), LOCAL_RANK=str(rank))
             cmd = [sys.executable, "-m", "style_seqcvae_tpu_torch.parallel.distributed_worker",
                    "--out", outs[-1], "--payloads", ",".join(specs), "--spec-dir", out_dir,
@@ -402,21 +470,29 @@ def launch_two_process_run(payloads: Union[Sequence[str], Dict[str, Dict[str, An
                 procs.append(subprocess.Popen(cmd, cwd=repo_root, env=wenv, stdout=log,
                                               stderr=subprocess.STDOUT))
         deadline = time.monotonic() + timeout
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break                        # a failed rank: the others would wait for it
+            if time.monotonic() > deadline:
+                raise subprocess.TimeoutExpired(cmd, timeout)
+            time.sleep(0.05)
     except subprocess.TimeoutExpired:
         raise RuntimeError(f"a distributed worker outlived its {timeout} s "
                            f"(logs in {out_dir})") from None
     finally:
-        for p in procs:
+        killed = set()
+        for rank, p in enumerate(procs):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for rank, p in enumerate(procs):
-        if p.returncode != 0:
+                killed.add(rank)
+    # the ranks that failed on their own first, then those stopped here
+    for rank in sorted(range(n), key=lambda r: r in killed):
+        if procs[rank].returncode != 0:
             with open(logs[rank]) as f:
                 tail = f.read()[-3000:]
-            raise RuntimeError(f"distributed worker {rank} failed rc={p.returncode}:\n{tail}")
+            raise RuntimeError(f"distributed worker {rank} failed "
+                               f"rc={procs[rank].returncode}:\n{tail}")
     results = []
     for path in outs:
         with open(path) as f:

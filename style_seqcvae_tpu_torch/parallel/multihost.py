@@ -43,6 +43,7 @@ ENV_COORDINATOR = "SSC_COORDINATOR"
 ENV_NUM_PROCESSES = "SSC_NUM_PROCESSES"
 ENV_PROCESS_ID = "SSC_PROCESS_ID"
 ENV_AUTO = "SSC_MULTIHOST"
+ENV_BACKEND = "SSC_BACKEND"
 _TORCHRUN = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
 
 
@@ -76,7 +77,8 @@ def maybe_initialize_distributed(device: Optional[Union[str, torch.device]] = No
     """Join the process group the environment describes; a no-op without
     one, and idempotent. ``device`` is the caller's device choice (None:
     the GPU); the backend is ``nccl`` for a CUDA device and ``gloo`` for the
-    CPU unless ``backend`` names one. Returns whether a group is up."""
+    CPU unless ``backend`` or ``SSC_BACKEND`` names one. Returns whether a
+    group is up."""
     if dist.is_initialized():
         return True
     conf = _configured()
@@ -90,7 +92,9 @@ def maybe_initialize_distributed(device: Optional[Union[str, torch.device]] = No
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
+    backend = backend or os.environ.get(ENV_BACKEND) or ("nccl" if dev.type == "cuda"
+                                                         else "gloo")
+    dist.init_process_group(backend,
                             init_method=init_method, world_size=world_size, rank=rank)
     return True
 
@@ -103,10 +107,10 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def local_batch_size(global_batch_size: int) -> int:
-    """Rows this process contributes to a global batch (the whole batch in
-    one process)."""
-    n = process_count()
+def local_batch_size(global_batch_size: int, parts: Optional[int] = None) -> int:
+    """Rows each of ``parts`` data indices (default: every process)
+    contributes to a global batch (the whole batch in one process)."""
+    n = process_count() if parts is None else parts
     if global_batch_size % n:
         raise ValueError(f"global batch size {global_batch_size} is not divisible by the "
                          f"{n} participating processes")
@@ -122,15 +126,17 @@ def free_port() -> int:
 def run_local_ranks(module: str, argv: List[str], n: int,
                     device: Optional[Union[str, torch.device]] = None) -> None:
     """Run ``python -m module *argv`` as ``n`` ranks of one process group on
-    this machine (``SSC_*`` environment on a free port; on ``cuda:0`` …
-    ``cuda:n-1``, or on the CPU when ``device`` is the CPU, each rank with
-    its share of this process's threads), and wait for them. Raises, and
-    stops the other ranks, when one fails; raises when fewer than ``n``
-    cards are visible."""
+    this machine (``SSC_*`` environment on a free port; on the CPU when
+    ``device`` is the CPU, each rank with its share of this process's
+    threads), and wait for them. With at least ``n`` cards, rank r runs on
+    ``cuda:r`` over NCCL; with fewer, the ranks share them (rank r on
+    ``cuda:r % cards``) over gloo, which NCCL refuses to do, and a line
+    says so. Raises, and stops the other ranks, when one fails."""
     dev = resolve_device(device)
-    if dev.type == "cuda" and torch.cuda.device_count() < n:
-        raise SystemExit(f"--num-data {n} needs {n} devices, found "
-                         f"{torch.cuda.device_count()} (cuda)")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    shared = dev.type == "cuda" and cards < n
+    if shared:
+        print(f"{n} ranks share {cards} CUDA device(s) over gloo", flush=True)
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     port = free_port()
     procs = []
@@ -138,10 +144,12 @@ def run_local_ranks(module: str, argv: List[str], n: int,
         for rank in range(n):
             env = dict(os.environ, **{
                 ENV_COORDINATOR: f"localhost:{port}", ENV_NUM_PROCESSES: str(n),
-                ENV_PROCESS_ID: str(rank), "LOCAL_RANK": str(rank),
+                ENV_PROCESS_ID: str(rank), "LOCAL_RANK": str(rank % cards if shared else rank),
                 "OMP_NUM_THREADS": str(max(1, torch.get_num_threads() // n)),
                 "PYTHONPATH": os.pathsep.join(
                     [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])})
+            if shared:
+                env[ENV_BACKEND] = "gloo"
             procs.append(subprocess.Popen([sys.executable, "-m", module, *argv], env=env))
         while True:
             codes = [p.poll() for p in procs]

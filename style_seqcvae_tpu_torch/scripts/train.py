@@ -4,7 +4,8 @@ var_updown/scripts/train.py:76-188).
 
     python -m style_seqcvae_tpu_torch.scripts.train --config cfg.yml \\
         --serialization-dir runs/x [--model baseline] [--bf16-compute] \\
-        [--device-corpus] [--steps-per-dispatch K] [--max-iterations N] [--cpu]
+        [--device-corpus] [--steps-per-dispatch K] [--max-iterations N] [--cpu] \\
+        [--num-data N] [--num-model M]
 
 The loop is the JAX CLI's: infinite shuffled batches from
 ``TrainingDataset.batches`` (``random.Random(RANDOM_SEED)``), loss =
@@ -28,15 +29,19 @@ directories (``training/checkpointing.py``), which
 ``--start-from-checkpoint NAME`` resumes step for step and the port's
 inference CLI reads.
 
-Data parallel (``parallel/``): under a launcher (torchrun, or the
-``SSC_COORDINATOR`` / ``SSC_NUM_PROCESSES`` / ``SSC_PROCESS_ID``
-environment) each rank loads ``BATCH_SIZE / world`` rows by
-``process_shard`` and the gradients are summed between the backward and
-the clip; ``--num-data`` must then be -1 or the world size. In a plain run
-``--num-data N`` above 1 starts N such ranks on this machine itself
-(``cuda:0`` … ``cuda:N-1``, or the CPU under ``--cpu``), which train on the
-batches and the z-noise of one process. Rank 0 writes the checkpoints and
-``metrics.jsonl``.
+Data and tensor parallel (``parallel/``): under a launcher (torchrun, or
+the ``SSC_COORDINATOR`` / ``SSC_NUM_PROCESSES`` / ``SSC_PROCESS_ID``
+environment) the world is a ``(num_data, num_model)`` mesh: ``--num-model
+M`` must divide it, and ``--num-data`` be -1 or the world over M. The M
+ranks of a data index load the same ``BATCH_SIZE / num_data`` rows by
+``process_shard`` and hold blocks of the vocabulary-facing and LSTM gate
+matrices (JAX's ``_PARAM_SPEC_TABLE``); the gradients are summed over the
+data axis between the backward and the clip. In a plain run ``--num-data
+N --num-model M`` with N·M above 1 starts N·M such ranks on this machine
+itself (one card each, or sharing the cards over gloo when there are
+fewer; the CPU under ``--cpu``), which train on the batches and the
+z-noise of one process. Rank 0 writes the checkpoints and
+``metrics.jsonl``; a checkpoint holds the whole leaves at any mesh.
 """
 
 from __future__ import annotations
@@ -59,11 +64,10 @@ from style_seqcvae_tpu_torch.data.vocabulary import (
     add_constraint_words_to_vocabulary,
 )
 from style_seqcvae_tpu_torch.device import resolve_device
-from style_seqcvae_tpu_torch.parallel.mesh import make_mesh, require_no_model_axis
+from style_seqcvae_tpu_torch.parallel.mesh import make_mesh
 from style_seqcvae_tpu_torch.parallel.multihost import (
     local_batch_size,
     maybe_initialize_distributed,
-    process_count,
     process_index,
     run_local_ranks,
 )
@@ -102,7 +106,8 @@ parser.add_argument("--num-data", type=int, default=-1,
                          "a plain run N > 1 starts N ranks on this machine, -1 and 1 "
                          "train in this process")
 parser.add_argument("--num-model", type=int, default=1,
-                    help="tensor-parallel size: 1 only (more waits for ROADMAP A10.2)")
+                    help="tensor-parallel ranks a data index (the mesh's model axis); in a "
+                         "plain run --num-data x --num-model ranks start on this machine")
 parser.add_argument("--cpu", action="store_true",
                     help="train on the CPU instead of the GPU")
 parser.add_argument("--bf16-compute", action="store_true",
@@ -141,20 +146,21 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
     ``step_ms``: host milliseconds a step)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     _A = parser.parse_args(argv)
-    require_no_model_axis(_A.num_model)
+    if _A.num_model < 1:
+        raise ValueError(f"--num-model {_A.num_model}: pass a positive number")
     device_arg = "cpu" if _A.cpu else None
     resolve_device(device_arg)
     mesh = None
     if maybe_initialize_distributed(device_arg):
-        mesh = make_mesh(_A.num_data, 1, [device_arg] if _A.cpu else None)
-    elif _A.num_data > 1:
-        run_local_ranks("style_seqcvae_tpu_torch.scripts.train", argv, _A.num_data,
-                        device_arg)
-        if stats is not None:
-            stats.update(ranks=_A.num_data)
-        return 0
-    elif _A.num_data not in (-1, 1):
+        mesh = make_mesh(_A.num_data, _A.num_model, [device_arg] if _A.cpu else None)
+    elif _A.num_data not in (-1, 1) and _A.num_data < 1:
         raise ValueError(f"--num-data {_A.num_data}: pass -1, 1 or a number of ranks")
+    elif max(_A.num_data, 1) * _A.num_model > 1:
+        ranks = max(_A.num_data, 1) * _A.num_model
+        run_local_ranks("style_seqcvae_tpu_torch.scripts.train", argv, ranks, device_arg)
+        if stats is not None:
+            stats.update(ranks=ranks)
+        return 0
     device = mesh.device if mesh is not None else resolve_device(device_arg)
     rank0 = process_index() == 0
 
@@ -189,16 +195,13 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
     init = init_baseline if _A.model == "baseline" else init_captioner
     params = init(model_cfg, seed=_C.RANDOM_SEED, device="cpu",
                   embedding_table=_embedding_table(_C, model_cfg, vocabulary))
-    state = create_train_state(params, _C, model_cfg, _C.RANDOM_SEED + 1, device=device)
+    state = create_train_state(params, _C, model_cfg, _C.RANDOM_SEED + 1, device=device,
+                               mesh=mesh)
     del params
     compute_dtype = torch.bfloat16 if _A.bf16_compute else None
     k_steps = max(1, _A.steps_per_dispatch)
     kld_weight = _C.MODEL.KLD_WEIGHT
     device_corpus = _A.device_corpus and _A.model != "baseline"
-    if device_corpus and process_count() > 1:
-        print("--device-corpus: multi-process runs feed per-process local shards — "
-              "falling back to the host feature path")
-        device_corpus = False
 
     feats_dev, feat_row_of = None, None
     if _A.model == "baseline":
@@ -221,8 +224,8 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
         print(f"device corpus: {table.shape} ({nbytes / 1e6:.0f} MB on device"
               f"{', + mode-2 embed table' if latent_dict is not None else ''})")
         del table
-        step1 = make_corpus_train_step(model_cfg, kld_weight, compute_dtype)
-        stepk = make_corpus_chained_train_step(model_cfg, kld_weight, compute_dtype)
+        step1 = make_corpus_train_step(model_cfg, kld_weight, compute_dtype, mesh)
+        stepk = make_corpus_chained_train_step(model_cfg, kld_weight, compute_dtype, mesh)
         train_step = lambda s, b: step1(s, feats_dev, b)  # noqa: E731
         chained_step = lambda s, b: stepk(s, feats_dev, b)  # noqa: E731
     else:
@@ -239,10 +242,12 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
     writer = MetricsWriter(_A.serialization_dir)
     timer = StepTimer()
     num_iterations = _A.max_iterations or _C.OPTIM.NUM_ITERATIONS
-    # each rank: its stride of the same seeded shuffle, BATCH_SIZE / world rows
-    batches = dataset.batches(local_batch_size(_C.OPTIM.BATCH_SIZE),
+    # each data index: its stride of the same seeded shuffle, BATCH_SIZE /
+    # num_data rows, the same for the ranks of its model group
+    n_data, data_index = (1, 0) if mesh is None else (mesh.num_data, mesh.data_index)
+    batches = dataset.batches(local_batch_size(_C.OPTIM.BATCH_SIZE, n_data),
                               rng=random.Random(_C.RANDOM_SEED),
-                              process_shard=(process_index(), process_count()))
+                              process_shard=(data_index, n_data))
 
     def host_batches():
         for batch in batches:

@@ -72,7 +72,7 @@ from style_seqcvae_tpu_torch.models.detector.faster_rcnn import (
 from style_seqcvae_tpu_torch.models.detector.rpn import RPNConfig
 from style_seqcvae_tpu_torch.models.detector.targets import ProposalTargetConfig
 from style_seqcvae_tpu_torch.parallel.collectives import reduce_gradients, reduce_scalars
-from style_seqcvae_tpu_torch.parallel.mesh import DataMesh, make_mesh
+from style_seqcvae_tpu_torch.parallel.mesh import Mesh, make_mesh
 from style_seqcvae_tpu_torch.parallel.multihost import (
     maybe_initialize_distributed,
     process_index,
@@ -144,7 +144,7 @@ def detector_config(D, num_classes: int, n_attribs: int, depth: int, remat: bool
 
 
 def make_train_step(det_cfg: DetectorConfig, opt: DetectorSGD, bf16: bool = False,
-                    mesh: Optional[DataMesh] = None) -> Callable[..., Dict[str, torch.Tensor]]:
+                    mesh: Optional[Mesh] = None) -> Callable[..., Dict[str, torch.Tensor]]:
     """One SGD step: ``step(params, batch, draws)`` runs the training
     forward (in bf16 on a cast of the f32 ``params`` under ``bf16``), the
     backward and ``opt``; returns the detached losses. ``draws``: a
@@ -152,7 +152,7 @@ def make_train_step(det_cfg: DetectorConfig, opt: DetectorSGD, bf16: bool = Fals
     this rank's block of images, the gradients are summed over the ranks
     before ``opt`` clips them, and the returned losses are the global
     ones."""
-    group = None if mesh is None else mesh.group
+    group = None if mesh is None else mesh.data_group
 
     def step(params: Dict[str, Any], batch: Dict[str, torch.Tensor], draws) -> Dict[str, Any]:
         if bf16:

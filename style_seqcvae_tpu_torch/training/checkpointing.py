@@ -17,8 +17,11 @@ A directory in any other layout raises ``ValueError`` naming what it holds.
 
 In a process group (``parallel/multihost.py``) rank 0 writes and prunes,
 and every rank waits at a barrier after each write, so that any rank can
-read what was saved. Every rank holds the same state, so a checkpoint
-restores at any world size.
+read what was saved. A state whose params are blocks of a mesh
+(``trainer.create_train_state(mesh=...)``) is gathered whole before the
+write (every rank takes part) and cut to its blocks on restore, so a
+checkpoint written at any mesh restores at any other, as the JAX
+package's orbax checkpoints reshard.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from style_seqcvae_tpu_torch.parallel.mesh import gather_leaf, local_block
 from style_seqcvae_tpu_torch.parallel.multihost import process_index
 from style_seqcvae_tpu_torch.weights import load_params_npz, named_leaves, param_family
 
@@ -117,9 +121,12 @@ class CheckpointManager:
 
     def save(self, state, name: str) -> None:
         """Write ``state`` (a ``trainer.TrainState``) as the directory ``name``,
-        replacing one that is there."""
-        flat = {f"params/{p}": t for p, t in named_leaves(state.params)}
-        flat.update((f"opt_state/trace/{p}", t) for p, t in state.tx.momentum().items())
+        replacing one that is there; blocks of a mesh are gathered whole
+        first, so every rank must call it."""
+        whole = _whole(state)
+        flat = {f"params/{p}": whole(p, t) for p, t in named_leaves(state.params)}
+        flat.update((f"opt_state/trace/{p}", whole(p, t))
+                    for p, t in state.tx.momentum().items())
         flat = {k: t.detach().cpu().numpy() for k, t in flat.items()}
         flat["opt_state/step"] = np.asarray(state.step, np.int32)
         flat["generator"] = state.generator.get_state().numpy()
@@ -137,13 +144,28 @@ class CheckpointManager:
         params = dict(named_leaves(data["params"]))
         trace = dict(named_leaves(data["opt_state"]["trace"]))
         step = int(data["opt_state"]["step"])
+        block = _block(target_state)
         with torch.no_grad():
             for path, p in target_state.tx.named:
                 if path not in params:
                     raise ValueError(f"checkpoint {name!r} has no parameter {path!r}")
-                p.copy_(torch.from_numpy(params[path]))
-        target_state.tx.load({k: torch.from_numpy(v) for k, v in trace.items()}, step)
+                p.copy_(block(path, torch.from_numpy(params[path])))
+        target_state.tx.load({k: block(k, torch.from_numpy(v)) for k, v in trace.items()}, step)
         target_state.generator.set_state(torch.from_numpy(data["generator"]))
         target_state.step = step
         return target_state
 
+
+
+def _whole(state):
+    """(path, tensor) → the whole leaf of a state's block."""
+    if state.specs is None:
+        return lambda path, t: t
+    return lambda path, t: gather_leaf(state.mesh, t, state.specs[path])
+
+
+def _block(state):
+    """(path, whole tensor) → the state's block of it."""
+    if state.specs is None:
+        return lambda path, t: t
+    return lambda path, t: local_block(state.mesh, t, state.specs[path])

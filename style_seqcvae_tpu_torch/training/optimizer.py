@@ -20,14 +20,22 @@ A step (1-indexed ``it``): the decoder's ``requires_grad`` follows the
 schedule, so an inactive parameter has no ``.grad``, takes no part in the
 clip, and SGD skips its weight decay and momentum; then the forward and
 backward; then the clip, the SGD step and the scheduler step.
+
+The clip is JAX's (``training/optimizer.py:90-94``): the gradients are
+scaled by ``min(1, clip / (gnorm + 1e-6))``, ``gnorm`` the global norm of
+``parallel/collectives.py::global_grad_norm``, which counts every element
+of a sharded leaf once (``norm_groups``: the group each sharded leaf's
+squares are summed over). Weight decay and momentum are elementwise, so a
+block of a leaf takes them as the whole leaf would.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from style_seqcvae_tpu_torch.parallel.collectives import global_grad_norm
 from style_seqcvae_tpu_torch.weights import named_leaves
 
 
@@ -62,9 +70,11 @@ class SGDFreezeSchedule:
 
     def __init__(self, params: Any, labels: Dict[str, str], *, lr: float, momentum: float,
                  weight_decay: float, num_iterations: int, clip_norm: float,
-                 decoder_start_iteration: int, decoder_update_every: int):
+                 decoder_start_iteration: int, decoder_update_every: int,
+                 norm_groups: Optional[Dict[str, Any]] = None):
         self.named: List[Tuple[str, torch.Tensor]] = named_leaves(params)
         self.labels = labels
+        self.norm_groups = norm_groups or {}
         self.clip_norm = clip_norm
         self.num_iterations = num_iterations
         self.decoder_start_iteration = decoder_start_iteration
@@ -91,9 +101,13 @@ class SGDFreezeSchedule:
 
     def update(self) -> torch.Tensor:
         """After the backward: clip the present gradients to ``clip_norm``
-        (their norm before the clip is returned), then the SGD and LR steps."""
-        grads = [p for _, p in self.named if p.grad is not None]
-        norm = torch.nn.utils.clip_grad_norm_(grads, self.clip_norm)
+        (their global norm before the clip is returned), then the SGD and
+        LR steps."""
+        norm = global_grad_norm(self.named, self.norm_groups)
+        scale = torch.clamp(self.clip_norm / (norm + 1e-6), max=1.0)
+        for _, p in self.named:
+            if p.grad is not None:
+                p.grad.mul_(scale.to(p.grad.dtype))
         self.optimizer.step()
         self.scheduler.step()
         return norm
@@ -118,7 +132,9 @@ class SGDFreezeSchedule:
         self.scheduler = _lr_scheduler(self.optimizer, self.num_iterations, step)
 
 
-def make_captioner_optimizer(config, params: Any, tie_embeddings: bool) -> SGDFreezeSchedule:
+def make_captioner_optimizer(config, params: Any, tie_embeddings: bool,
+                             norm_groups: Optional[Dict[str, Any]] = None
+                             ) -> SGDFreezeSchedule:
     """The optimizer of a ``Config``'s OPTIM section over ``params`` (JAX
     ``optimizer.py:112-123``); the tied embedding is frozen."""
     return SGDFreezeSchedule(
@@ -130,4 +146,5 @@ def make_captioner_optimizer(config, params: Any, tie_embeddings: bool) -> SGDFr
         clip_norm=config.OPTIM.CLIP_GRADIENTS,
         decoder_start_iteration=config.OPTIM.EPOCH_START_DECODER_TRAINING,
         decoder_update_every=config.OPTIM.BEFORE_UPDATE_DECODER_EVERY,
+        norm_groups=norm_groups,
     )

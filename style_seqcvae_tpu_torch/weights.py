@@ -69,6 +69,20 @@ def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     return type(tree)(*[tree_map(fn, v) for v in tree])
 
 
+def tree_map_with_path(fn: Callable[[str, torch.Tensor], Any], tree: Any,
+                       prefix: str = "") -> Any:
+    """:func:`tree_map` with ``fn(path, leaf)``, the path as
+    :func:`named_leaves` writes it."""
+    if torch.is_tensor(tree):
+        return fn(prefix[:-1], tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return type(tree)(*[tree_map_with_path(fn, v, f"{prefix}{k}/")
+                        for k, v in tree._asdict().items()])
+
+
 def cast_floats(tree: Any, dtype: Optional[torch.dtype]) -> Any:
     """``tree`` with every f32 leaf cast to ``dtype`` (``None``: unchanged);
     autograd carries gradients back through the casts."""

@@ -96,6 +96,8 @@ def test_captioner_two_ranks_equal_one_process_and_jax(tmp_path):
         jstate, m = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
         jmetrics.append({k: float(v) for k, v in m.items()})
 
+    ranks = [dict(r["captioner"], process_count=r["process_count"]) for r in ranks]
+    one = one["captioner"]
     for r in ranks:
         assert r["process_count"] == 2 and r["opt_step"] == 2
         assert r["metrics"] == ranks[0]["metrics"]            # every rank: the global step
@@ -161,6 +163,7 @@ def test_detector_two_ranks_equal_jax_with_unequal_counts(tmp_path):
 
     jlosses, jnew = jstep(jparams, tx.init(jparams))
     jlosses = {k: float(v) for k, v in jlosses.items()}
+    ranks = [r["detector"] for r in ranks]
     for r in ranks:
         assert r["det_losses"] == ranks[0]["det_losses"]
         for name, want in jlosses.items():
@@ -178,7 +181,7 @@ def test_detector_two_ranks_equal_jax_with_unequal_counts(tmp_path):
                  **{f: d.numpy()[None, rows] for f, d in draws._asdict().items()})
         halves.append(W.run_payloads({"detector": dict(
             spec, batch=2, batch_npz=str(tmp_path / "half.npz"),
-            draws=str(tmp_path / "half_draws.npz"), save=None)}, "cpu")["det_losses"][0])
+            draws=str(tmp_path / "half_draws.npz"), save=None)}, "cpu")["detector"]["det_losses"][0])
     for name in ("rpn_cls", "rcnn_cls_atts", "total"):
         averaged = (halves[0][name] + halves[1][name]) / 2
         assert abs(averaged - jlosses[name]) > 100 * METRIC_RTOL * abs(jlosses[name]), name
@@ -198,36 +201,35 @@ def test_detector_two_ranks_equal_jax_with_unequal_counts(tmp_path):
 # ------------------------------------------------------------ checkpoints
 
 
-def test_checkpoints_restore_across_world_sizes(tmp_path, monkeypatch):
+def test_checkpoints_restore_across_world_sizes(tmp_path):
     """One process saves after a step; two ranks restore it and take the
     second step as one process does in two steps, then save; one process
     restores the two ranks' save with their params and step."""
     ckpt = str(tmp_path / "ckpts")
-    spec = {"captioner": W.captioner_spec()}
+    base = W.captioner_spec(ckpt_dir=ckpt)
 
-    def payload(**env):
-        with monkeypatch.context() as m:
-            for k, v in env.items():
-                m.setenv(k, str(v))
-            return W.run_payloads(spec, "cpu")
+    def payload(**kw):
+        return W.run_payloads({"captioner": dict(base, **kw)}, "cpu")["captioner"]
 
-    one = payload(SSC_CKPT_DIR=ckpt, SSC_STEPS=1, SSC_CKPT_SAVE="single_step1")
-    two = payload(SSC_STEPS=2)
+    one = payload(steps=1, ckpt_save="single_step1")
+    two = payload(steps=2, ckpt_dir=None)
     assert one["opt_step"] == 1 and two["opt_step"] == 2
 
     ranks = W.launch_two_process_run(
-        spec, timeout=TIMEOUT, out_dir=str(tmp_path / "w"),
-        env=dict(SSC_CKPT_DIR=ckpt, SSC_STEPS="1", SSC_CKPT_RESTORE="single_step1",
-                 SSC_CKPT_SAVE="multi_step2"))
+        {"captioner": dict(base, steps=1, ckpt_restore="single_step1",
+                           ckpt_save="multi_step2")},
+        timeout=TIMEOUT, out_dir=str(tmp_path / "w"))
     for r in ranks:
-        assert r["process_count"] == 2 and r["opt_step"] == 2
+        assert r["process_count"] == 2
+        r = r["captioner"]
+        assert r["opt_step"] == 2
         np.testing.assert_allclose(r["loss"], two["loss"], rtol=METRIC_RTOL)
         np.testing.assert_allclose(r["param_norm_sq"], two["param_norm_sq"], rtol=1e-6)
     assert sorted(os.listdir(ckpt)) == ["multi_step2", "single_step1"]
 
-    restored = payload(SSC_CKPT_DIR=ckpt, SSC_STEPS=0, SSC_CKPT_RESTORE="multi_step2")
+    restored = payload(steps=0, ckpt_restore="multi_step2")
     assert restored["opt_step"] == 2
-    assert restored["param_norm_sq"] == ranks[0]["param_norm_sq"]
+    assert restored["param_norm_sq"] == ranks[0]["captioner"]["param_norm_sq"]
 
 
 def test_a_failing_rank_fails_the_launch(tmp_path):

@@ -216,9 +216,9 @@ def _lstm_input_dtypes(monkeypatch, module):
     seen = []
     real = module.lstm_cell
 
-    def spy(params, x, h, c):
+    def spy(params, x, h, c, *model_group):
         seen.append(str(x.dtype).split(".")[-1])
-        return real(params, x, h, c)
+        return real(params, x, h, c, *model_group)
 
     monkeypatch.setattr(module, "lstm_cell", spy)
     return seen

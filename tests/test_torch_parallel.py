@@ -1,7 +1,7 @@
 """The port's data-parallel layer without a second process
 (``style_seqcvae_tpu_torch/parallel``): the process runtime without its
 environment, the batch helpers, ``decode_grid_split`` and the decode grid
-split over CPU entries of a ``DataMesh``.
+split over CPU entries of a ``Mesh``.
 
 A split decode is held token for token to the unsplit port decode and to
 the JAX harness sharded over the CPU mesh of ``tests/conftest.py`` (8
@@ -45,7 +45,7 @@ ENV = ("SSC_COORDINATOR", "SSC_NUM_PROCESSES", "SSC_PROCESS_ID", "SSC_MULTIHOST"
 
 
 def _cpu_mesh(n):
-    return tmesh.DataMesh(tuple(torch.device("cpu") for _ in range(n)))
+    return tmesh.Mesh(tuple(torch.device("cpu") for _ in range(n)))
 
 
 def _jax_mesh(n):
@@ -79,19 +79,24 @@ def test_local_batch_size_and_rows(monkeypatch):
 
 
 def test_mesh_refuses_a_model_axis_and_missing_devices():
-    with pytest.raises(NotImplementedError, match="A10.2"):
-        tmesh.make_mesh(2, 2, ["cpu", "cpu", "cpu", "cpu"])
+    # a model axis is ported: one process's 2 x 2 mesh, its data rows first
+    square = tmesh.make_mesh(2, 2, ["cpu", "cpu", "cpu", "cpu"])
+    assert (square.num_data, square.num_model, square.world_size) == (2, 2, 1)
+    assert len(square.data_devices) == 2 and square.data_group is None
+    assert tmesh.make_mesh(-1, 2, ["cpu"] * 6).num_data == 3
+    with pytest.raises(ValueError, match="does not cover"):
+        tmesh.make_mesh(-1, 4, ["cpu"] * 6)
     with pytest.raises(ValueError, match="does not cover"):
         tmesh.make_mesh(3, 1, ["cpu", "cpu"])
     mesh = tmesh.make_mesh(-1, 1, ["cpu", "cpu"])
-    assert len(mesh.devices) == 2 and mesh.world_size == 1 and mesh.group is None and mesh.device.type == "cpu"
+    assert len(mesh.devices) == 2 and mesh.world_size == 1 and mesh.data_group is None and mesh.device.type == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tmesh.make_mesh(1, 1, ["cuda:0"])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             DecodeHarness(init_baseline(CaptionerConfig(vocab_size=10), device="cpu"),
                           CaptionerConfig(vocab_size=10), family="baseline",
-                          mesh=tmesh.DataMesh((torch.device("cuda:1"),)))
+                          mesh=tmesh.Mesh((torch.device("cuda:1"),)))
 
 
 def test_decode_grid_split_cases():
@@ -295,7 +300,7 @@ def test_split_baseline_and_bad_meshes():
         assert torch.equal(h_out(split), h_out(plain))
     with pytest.raises(ValueError, match="one process's devices"):
         DecodeHarness(params, cfg, family="baseline",
-                      mesh=tmesh.DataMesh((torch.device("cpu"),), world_size=2))
+                      mesh=tmesh.Mesh((torch.device("cpu"),), world_size=2))
 
 
 def test_split_decodes_every_chunk_in_a_worker_thread():

@@ -61,7 +61,8 @@ def test_port_imports_no_jax():
                  "models.detector.targets", "training.detector_optimizer",
                  "evaluation.detection_eval", "scripts.train_detector",
                  "scripts.eval_detections", "parallel.multihost", "parallel.mesh",
-                 "parallel.collectives", "parallel.distributed_worker"):
+                 "parallel.collectives", "parallel.distributed_worker",
+                 "parallel.tensor_parallel"):
         assert "style_seqcvae_tpu_torch." + name in modules
     code = "\n".join([
         "import sys",

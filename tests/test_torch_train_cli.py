@@ -15,7 +15,7 @@ alone.
   ``--device-corpus`` (modes 1 and 2) equal to the plain run bit for bit;
   ``--bf16-compute`` finite; the port's inference CLI decoding from the
   checkpoint directory as from the same params in a ``.npz``; ``python -m``
-  as a user runs it; the refusal of multi-GPU training.
+  as a user runs it; ``--num-model 2`` running as two ranks it starts.
 * ``--model baseline``: the per-step losses equal to the JAX CLI's within
   rtol 1e-5 (the port's ``init_baseline`` patched to JAX's); checkpoints,
   a resume and the inference CLI decoding the checkpoint; the refusal of
@@ -224,12 +224,19 @@ def test_train_cli_refusals(tmp_path):
     assert P.main(base + ["--model", "baseline"]) == 0
     assert "language_lstm" in read_checkpoint(str(tmp_path / "r" / "checkpoint_2"))["params"][
         "cell"]
-    # data parallelism runs since it was ported (tests/test_torch_ddp.py);
-    # tensor parallelism is still refused
-    with pytest.raises(NotImplementedError, match="A10.2"):
-        P.main(base + ["--num-model", "2"])
-    with pytest.raises(NotImplementedError, match="A10.2"):
-        P.main(base + ["--model", "baseline", "--num-model", "2"])
+    # data parallelism runs since it was ported (tests/test_torch_ddp.py), and
+    # tensor parallelism since it was: a plain --num-model 2 starts two ranks
+    # (held to --num-model 1 in tests/test_torch_tensor_parallel.py)
+    for model, extra in (("cvae", []), ("baseline", ["--bf16-compute"])):
+        stats = {}
+        ser = tmp_path / f"tp_{model}"
+        args = ["--config", str(cfg), "--serialization-dir", str(ser), "--cpu",
+                "--model", model, "--num-model", "2", *extra]
+        assert P.main(args, stats=stats) == 0 and stats == {"ranks": 2}
+        assert int(read_checkpoint(str(ser / "checkpoint_2"))["opt_state"]["step"]) == 2
+        assert all(np.isfinite(r["loss"]) for r in _rows(ser / "metrics.jsonl"))
+    with pytest.raises(ValueError, match="--num-model 0"):
+        P.main(base + ["--num-model", "0"])
 
 
 def test_port_cli_baseline_losses_match_jax_cli(tmp_path, monkeypatch):
