@@ -199,12 +199,38 @@ one JSON line per phase as it goes:
    ms a step per rank, ms of the step's tensor-parallel collectives (CUDA
    events), their count and the peak memory per rank;
 
+30. ``pipeline``, the user's three-stage workflow: ``make_world`` renders
+   the JAX test's world (40 / 6 / 6 images of 384 x 512) and encodes each
+   JPEG on the card with nvjpeg's encoder (quality 92, 4:2:0): encode ms an
+   image; each JPEG decoded back by nvjpeg against the re-rendered pixels
+   (mean and max absolute error, within NVJPEG_ROUNDTRIP_BOUND); then
+   ``scripts/three_stage.py`` over every stage (1, gate, 2, 3, 4, 5) with
+   one detector epoch (ResNet-50, bf16), 10 captioner steps and no mAP
+   gate, each CLI a subprocess on the card: each stage's exit code, seconds
+   and the launches its processes report (A in the CBS leg, C and its
+   backward in stage 1, C and D in stages 1, gate and 2), the AP50 and
+   mAP; then each kernel on the inputs of its first launch in each step's
+   process (saved under SSC_KERNEL_INPUTS: A at the CBS leg's rows and the
+   world's vocabulary, C and its backward on the 384 x 512 ResNet-50 map
+   and the training RoIs, D at the RPN's 8 x 9,216 anchors and the
+   extraction's calls) against its plain version under TOL, ROI_TOL,
+   ROI_BWD_TOL and no NMS mismatch, with its ms there; it fails unless
+   every stage exits 0, each of A, C, C's backward and D launched and was
+   checked, and every check agrees;
+
 then the ``{"kernels": [...]}`` summary, the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Exits non-zero at once without a GPU.
 ``python3 chip_smoke.py --split-readings SEED ...`` runs only the build and
 ``decode_split`` at each seed (the readings its bounds are set from);
-``python3 chip_smoke.py --tp-readings`` runs only the ``tp`` part.
+``python3 chip_smoke.py --tp-readings`` runs only the ``tp`` part;
+``python3 chip_smoke.py --pipeline`` only the build and ``pipeline``.
+``python3 chip_smoke.py --pipeline-readings`` runs the build and the
+workflow alone at make_world's defaults (800 / 100 / 100 images) and
+three_stage.sh's detector knobs (16 epochs, ResNet-50), the captioner cut
+to 2,000 steps: stage seconds, AP50 and mAP beside the JAX run's, the
+style margins and the baselines (reported, not gated);
+``--pipeline-readings DIR`` also copies the run's records to ``DIR``.
 """
 
 from __future__ import annotations
@@ -232,6 +258,7 @@ import torch
 from style_seqcvae_tpu_torch.config import Config
 from style_seqcvae_tpu_torch.data import image_decode
 from style_seqcvae_tpu_torch.data.config_attrib_selection import attrib_selection
+from style_seqcvae_tpu_torch.data.image_encode import encode_jpeg
 from style_seqcvae_tpu_torch.data.datasets import EvaluationDatasetWithConstraints
 from style_seqcvae_tpu_torch.data.detection import prepare_image
 from style_seqcvae_tpu_torch.data.vocabulary import (
@@ -286,6 +313,7 @@ from style_seqcvae_tpu_torch.parallel import distributed_worker as dworker
 from style_seqcvae_tpu_torch.parallel.mesh import make_mesh
 from style_seqcvae_tpu_torch.parallel.multihost import free_port
 from style_seqcvae_tpu_torch.ops.kernels import (
+    KERNEL_INPUTS_ENV,
     _build,
     nms,
     roi_align,
@@ -297,7 +325,9 @@ from style_seqcvae_tpu_torch.scripts import eval_detections as eval_detections_c
 from style_seqcvae_tpu_torch.scripts import extract_features as extract_cli
 from style_seqcvae_tpu_torch.scripts import inference as cli
 from style_seqcvae_tpu_torch.scripts import load_test
+from style_seqcvae_tpu_torch.scripts import make_world as make_world_cli
 from style_seqcvae_tpu_torch.scripts import train as train_cli
+from style_seqcvae_tpu_torch.scripts import three_stage as three_stage_cli
 from style_seqcvae_tpu_torch.scripts import train_detector as train_detector_cli
 from style_seqcvae_tpu_torch.serving import make_serve_fn
 from style_seqcvae_tpu_torch.training.checkpointing import read_checkpoint
@@ -408,6 +438,34 @@ PUBLISHED_MODEL = dict(IMAGE_FEATURE_SIZE=F, EMBEDDING_SIZE=E, HIDDEN_SIZE=H,
 # detect_agree: pooled features of the path, whose scale is set by the
 # random ResNet (measured up to ~10): 1e-5 relative to the largest value
 DETECT_AGREE_REL = 1e-5
+
+# the three-stage workflow (scripts/three_stage.py) on a world that
+# make_world renders on the card (JPEG through nvjpeg): the JAX test's world
+# size (tests/test_make_world.py) at the workflow's 384 x 512, and knobs
+# small enough for the smoke run (one detector epoch, 10 captioner steps, no
+# mAP gate: the AP50 of one epoch is printed, not judged)
+PIPE_WORLD = dict(train=40, val=6, test=6, senticap=12, seed=3)
+PIPE_KNOBS = dict(det_epochs=1, cap_iters=10, map_gate=0.0)
+# --pipeline-readings: make_world's own defaults and three_stage.sh's
+# detector knobs (16 epochs, ResNet-50, its learning rate and decay), the
+# captioner cut from 20,000 steps to 2,000 (~4 minutes on the card); every
+# image's round trip would re-render 1,000 scenes on the host, so the first
+# 60 are checked
+READINGS_WORLD = dict(train=800, val=100, test=100, senticap=100, seed=0)
+READINGS_KNOBS = dict(det_epochs=16, cap_iters=2000, map_gate=0.0)
+READINGS_ROUNDTRIP = 60
+# the JAX run's figures beside which the readings are reported
+# (runs/pipeline3/detection_map.json; tests/test_pipeline_artifacts.py's gates)
+JAX_PIPELINE_MAP = {"AP50": 0.7153959994679204, "mAP": 0.4565194270737201}
+JAX_PIPELINE_GATES = {"AP50": 0.5, "mAP": 0.25, "pos_margin": 0.30, "neg_margin": 0.30,
+                      "model mean B4": 0.05, "mean B4 over random": 1.2,
+                      "mean cider over random": 1.2, "grounding_P over random": 1.4}
+# nvjpeg's encode (quality 92, 4:2:0) decoded back by nvjpeg, against the
+# rendered pixels: bounds set from readings (H100, the 52 smoke images:
+# mean 5.04, worst image 5.52, max 194; the readings world's first 60: mean
+# 5.04, worst 5.85, max 195; PIL's own quality-92 round trip of the smoke
+# images: mean 4.80, max 153; the scenes carry per-pixel noise)
+NVJPEG_ROUNDTRIP_BOUND = {"mean": 6.0, "max": 230.0}
 
 SOURCES = {
     # the summary row is the bf16 path's; f32 runs csrc/vocab_topk_lse.cu
@@ -3446,6 +3504,281 @@ def phase_multigpu(dev: torch.device, decode_state) -> dict:
     return launches
 
 
+def render_world_on_card(out: Path, world: dict) -> dict:
+    """make_world as a user runs it, the images JPEG-encoded on the card:
+    its stats (images, host render seconds, encode seconds), after one
+    encode of a blank image (``encode_first_ms``: the library's load and
+    the encoder's set-up), so that ``encode_s`` is the steady state."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encode_jpeg(torch.zeros((384, 512, 3), dtype=torch.uint8, device="cuda"))
+    stats = {"encode_first_ms": 1e3 * (time.perf_counter() - t0)}
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = make_world_cli.main(["--out-dir", str(out), "--num-train", str(world["train"]),
+                                  "--num-val", str(world["val"]), "--num-test",
+                                  str(world["test"]), "--senticap-train",
+                                  str(world["senticap"]), "--seed", str(world["seed"])],
+                                 stats=stats)
+    if rc != 0:
+        fail(f"make_world exited {rc}: {printed.getvalue()[-2000:]}")
+    return stats
+
+
+def jpeg_roundtrip(world_dir: Path, world: dict, dev: torch.device, limit: int) -> dict:
+    """The first ``limit`` images (make_world's order: train, val, test)
+    decoded back by nvjpeg against the pixels re-rendered from the same
+    RandomState stream."""
+    rng = np.random.RandomState(world["seed"])
+    files = [im["file_name"] for split in ("train", "val", "test") for im in json.loads(
+        (world_dir / f"instances_{split}.json").read_text())["images"]][:limit]
+    means, maxes, sizes = [], [], []
+    for name in files:
+        img, _ = make_world_cli.render_image(rng, 384, 512, make_world_cli.sample_scene(
+            rng, 384, 512))
+        data = (world_dir / "images" / name).read_bytes()
+        got = image_decode.decode_jpeg(data, dev).cpu().numpy()[:, :, ::-1]
+        diff = np.abs(got.astype(np.float32) - img.astype(np.float32))
+        means.append(float(diff.mean()))
+        maxes.append(float(diff.max()))
+        sizes.append(len(data))
+    return {"images": len(files), "mean_abs_err": float(np.mean(means)),
+            "worst_image_mean_abs_err": max(means), "max_abs_err": max(maxes),
+            "mean_bytes": float(np.mean(sizes)), "bound": NVJPEG_ROUNDTRIP_BOUND}
+
+
+def run_three_stage(world_dir: Path, run_dir: Path, knobs: dict, log: Path,
+                    inputs: Path) -> dict:
+    """scripts/three_stage.py over every stage, each CLI a subprocess on the
+    card that saves each kernel's inputs at its first launch under
+    ``inputs/<step>/``; its output goes to ``log``. Returns its stats
+    (``RUN/three_stage.json``) and its exit code."""
+    printed = io.StringIO()
+    os.environ[KERNEL_INPUTS_ENV] = str(inputs)
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc = three_stage_cli.main(["--world", str(world_dir), "--run", str(run_dir),
+                                       "--det-epochs", str(knobs["det_epochs"]),
+                                       "--cap-iters", str(knobs["cap_iters"]),
+                                       "--map-gate", str(knobs["map_gate"])])
+    finally:
+        del os.environ[KERNEL_INPUTS_ENV]
+    log.write_text(printed.getvalue())
+    summary = run_dir / "three_stage.json"
+    stats = json.loads(summary.read_text()) if summary.exists() else {"stages": {}}
+    stats["rc"] = rc
+    return stats
+
+
+def check_recorded(name: str, args: dict, dev: torch.device) -> dict:
+    """Kernel ``name`` on the inputs a workflow process gave it at its first
+    launch (``ops/kernels::record_inputs``), against its plain version on
+    the card under the kernel phases' tolerances: TOL for A, ROI_TOL for C,
+    ROI_BWD_TOL for C's backward, no mismatch for D. Its row, with
+    ``ok`` and the kernel's ms on these inputs."""
+    a = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in args.items()}
+    row = {"phase": "pipeline_kernel", "name": name}
+    if name == "vocab_topk_lse":
+        row.update(x=list(a["x"].shape), emb=list(a["emb"].shape), k=a["k"],
+                   dtype=str(a["x"].dtype).split(".")[-1])
+
+        def run():
+            return vocab_topk_lse.matmul_top_k_with_lse(a["x"], a["emb"], a["k"])
+
+        got = run()
+        want = vocab_topk_lse.matmul_top_k_with_lse_plain(a["x"], a["emb"], a["k"])
+        torch.cuda.synchronize()
+        vals_err = (got[0] - want[0]).abs().max().item()
+        lse_err = (got[2] - want[2]).abs().max().item()
+        agree = (got[1] == want[1]).float().mean().item()
+        tol = TOL[name]
+        row.update(max_abs_err_vals=vals_err, max_abs_err_lse=lse_err, idx_agree=agree,
+                   tolerance=tol, ok=vals_err <= tol["vals"] and lse_err <= tol["lse"]
+                   and agree >= tol["idx_agree"])
+    elif name in ("roi_align", "roi_align_backward"):
+        kw = dict(spatial_scale=a["spatial_scale"], pooled_height=a["pooled"],
+                  pooled_width=a["pooled"], sampling_ratio=a["sampling_ratio"])
+        if name == "roi_align":
+            dtype = a["features"].dtype
+
+            def run():
+                return roi_align.roi_align(a["features"], a["rois"], **kw)
+
+            want = roi_align.roi_align_plain(a["features"], a["rois"], **kw)
+            row.update(features=list(a["features"].shape))
+        else:
+            dtype, shape = a["grad_out"].dtype, a["features_shape"]
+
+            def run():
+                return roi_align.roi_align_backward(a["grad_out"], a["rois"], shape, **kw)
+
+            want = roi_align.roi_align_backward_plain(a["grad_out"], a["rois"], shape, dtype,
+                                                      **kw)
+            row.update(features=list(shape))
+        got = run()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        row.update(rois=a["rois"].shape[0], dtype=str(dtype).split(".")[-1],
+                   max_abs_err=err.max().item())
+        if name == "roi_align":
+            atol, rtol = ROI_TOL[dtype]
+            row.update(tolerance={"atol": atol, "rtol": rtol},
+                       ok=bool((err <= atol + rtol * want.float().abs()).all()))
+        else:
+            scale = want.float().abs().max().item()
+            row.update(max_grad=scale, tolerance_rel_to_max=ROI_BWD_TOL[dtype],
+                       ok=scale > 0 and row["max_abs_err"] <= ROI_BWD_TOL[dtype] * scale)
+    elif name == "nms":
+        kw = dict(max_out=a["max_out"], presorted=a["presorted"])
+
+        def run():
+            return nms.nms(a["boxes"], a["scores"], a["threshold"], **kw)
+
+        got = run()
+        want = nms.nms_plain(a["boxes"], a["scores"], a["threshold"], **kw)
+        torch.cuda.synchronize()
+        mismatches = int(sum((x != y).sum() for x, y in zip(got, want)))
+        row.update(groups=a["boxes"].shape[0], boxes=a["boxes"].shape[1],
+                   threshold=a["threshold"], **kw,
+                   kept_per_group=got[1].sum(dim=1).float().mean().item(),
+                   mismatches=mismatches, ok=mismatches == 0)
+    else:
+        raise ValueError(f"no check for kernel {name!r}")
+    row["kernel_ms"], row["kernel_ms_range"] = time_ms_range(run)
+    return row
+
+
+def check_pipeline_inputs(inputs: Path, dev: torch.device) -> dict:
+    """Every kernel input that a workflow step recorded, checked by
+    :func:`check_recorded`; fails on a disagreement. Returns the number of
+    checks of each kernel."""
+    checked = {}
+    for path in sorted(inputs.glob("*/*.pt")):
+        name = path.stem
+        row = {"step": path.parent.name, **check_recorded(name, torch.load(path), dev)}
+        emit(row)
+        if not row["ok"]:
+            fail(f"pipeline: {name} disagrees with its plain version on the inputs of "
+                 f"step {row['step']}: {row}")
+        checked[name] = checked.get(name, 0) + 1
+    return checked
+
+
+def pipeline_launches(stats: dict) -> dict:
+    """The stages' processes' launches, summed, under the kernels line's
+    names: every D call of the workflow is the RPN's (the extract CLI's
+    per-class NMS is numpy)."""
+    out = {"vocab_topk_lse": 0, "topk_lse": 0, "roi_align": 0, "roi_align_backward": 0,
+           "nms_rpn": 0}
+    for stage in stats["stages"].values():
+        for name, n in stage["launches"].items():
+            out["nms_rpn" if name == "nms" else name] += n
+    return out
+
+
+def phase_pipeline(dev: torch.device) -> dict:
+    """The user's workflow on the card: make_world (JPEG through nvjpeg's
+    encoder), each JPEG decoded back by nvjpeg against the rendered pixels,
+    then three_stage.py over stages 1, gate, 2, 3, 4 and 5 at small knobs.
+    Returns the stages' launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        wstats = render_world_on_card(root / "world", PIPE_WORLD)
+        world_s = time.perf_counter() - t0
+        trip = jpeg_roundtrip(root / "world", PIPE_WORLD, dev, wstats["images"])
+        emit({"phase": "pipeline_world", "images": wstats["images"], "wall_s": world_s,
+              "render_s": wstats["render_s"], "encode_first_ms": wstats["encode_first_ms"],
+              "encode_ms_per_image": 1e3 * wstats["encode_s"] / wstats["images"],
+              "encoder": "nvjpeg (libnvjpeg, CUDA toolkit), quality 92, 4:2:0",
+              "roundtrip": trip})
+        if not (trip["mean_abs_err"] <= NVJPEG_ROUNDTRIP_BOUND["mean"]
+                and trip["max_abs_err"] <= NVJPEG_ROUNDTRIP_BOUND["max"]):
+            fail(f"pipeline: nvjpeg's round trip outside its bound: {trip}")
+        stats = run_three_stage(root / "world", root / "run", PIPE_KNOBS, root / "run.log",
+                                root / "inputs")
+        launches = pipeline_launches(stats)
+        dmap = json.loads((root / "run" / "detection_map.json").read_text()) \
+            if (root / "run" / "detection_map.json").exists() else {}
+        for name, st in stats["stages"].items():
+            emit({"phase": "pipeline_stage", "stage": name, "rc": st["rc"],
+                  "seconds": st["seconds"], "launches": st["launches"],
+                  "steps": [{"name": x["name"], "rc": x["rc"], "seconds": x["seconds"]}
+                            for x in st["steps"]]})
+        emit({"phase": "pipeline", "knobs": PIPE_KNOBS, "world": PIPE_WORLD, "rc": stats["rc"],
+              "stages_run": list(stats["stages"]), "AP50": dmap.get("AP50"),
+              "mAP": dmap.get("mAP"), "launches": launches,
+              "note": "one detector epoch and 10 captioner steps: quality is not judged"})
+        if stats["rc"] != 0 or list(stats["stages"]) != list(three_stage_cli.STAGES):
+            fail(f"pipeline: three_stage exited {stats['rc']} after stages "
+                 f"{list(stats['stages'])}: {(root / 'run.log').read_text()[-3000:]}")
+        missing = [k for k in ("vocab_topk_lse", "roi_align", "roi_align_backward", "nms_rpn")
+                   if launches[k] < 1]
+        if missing:
+            fail(f"pipeline: kernels {missing} never launched in the workflow: {launches}")
+        # each kernel held to its plain version on the workflow's own inputs
+        checked = check_pipeline_inputs(root / "inputs", dev)
+        unchecked = [k for k in ("vocab_topk_lse", "roi_align", "roi_align_backward", "nms")
+                     if not checked.get(k)]
+        emit({"phase": "pipeline_kernels", "checked": checked})
+        if unchecked:
+            fail(f"pipeline: no recorded inputs of {unchecked} to check: {checked}")
+    return launches
+
+
+def pipeline_readings(dev: torch.device, records: str | None) -> int:
+    """``python3 chip_smoke.py --pipeline-readings [DIR]``: the workflow at
+    the world's and the detector's own defaults (READINGS_*), its figures
+    beside the JAX run's; the run's records (its log, three_stage.json, the
+    reports, both metrics.jsonl) are copied to ``DIR`` when one is given."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        out = Path(records) if records else root / "records"
+        out.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        wstats = render_world_on_card(root / "world", READINGS_WORLD)
+        world_s = time.perf_counter() - t0
+        trip = jpeg_roundtrip(root / "world", READINGS_WORLD, dev, READINGS_ROUNDTRIP)
+        emit({"phase": "pipeline_readings_world", "images": wstats["images"], "wall_s": world_s,
+              "render_s": wstats["render_s"], "encode_first_ms": wstats["encode_first_ms"],
+              "encode_ms_per_image": 1e3 * wstats["encode_s"] / wstats["images"],
+              "roundtrip": trip})
+        stats = run_three_stage(root / "world", root / "run", READINGS_KNOBS,
+                                out / "three_stage.log", root / "inputs")
+        checked = check_pipeline_inputs(root / "inputs", dev)
+        run = root / "run"
+        for name in ("three_stage.json", "detection_map.json", "eval_baselines.json",
+                     "style_report.json", "eval_neutral.json", "eval_pos.json",
+                     "eval_neg.json", "captioner_config.yml"):
+            if (run / name).exists():
+                shutil.copy(run / name, out / name)
+        for src, dst in (("detector/metrics.jsonl", "detector_metrics.jsonl"),
+                         ("captioner/metrics.jsonl", "captioner_metrics.jsonl")):
+            if (run / src).exists():
+                shutil.copy(run / src, out / dst)
+
+        def read(name):
+            return json.loads((run / name).read_text()) if (run / name).exists() else {}
+
+        dmap, base, style = (read("detection_map.json"), read("eval_baselines.json"),
+                             read("style_report.json"))
+        keys = ("mean B4", "B4", "mean cider", "cider", "grounding_P", "grounding_R")
+        emit({"phase": "pipeline_readings", "rc": stats["rc"], "knobs": READINGS_KNOBS,
+              "world": READINGS_WORLD,
+              "cut": "CAP_ITERS 20,000 (three_stage.sh's default) -> 2,000",
+              "stage_seconds": {k: v["seconds"] for k, v in stats["stages"].items()},
+              "stage_rc": {k: v["rc"] for k, v in stats["stages"].items()},
+              "launches": pipeline_launches(stats), "kernel_inputs_checked": checked,
+              "AP50": dmap.get("AP50"), "mAP": dmap.get("mAP"), "jax_run": JAX_PIPELINE_MAP,
+              "control": style.get("control"),
+              "baselines": {s: {k: base[s].get(k) for k in keys} for s in base},
+              "jax_gates_reported_not_gated": JAX_PIPELINE_GATES})
+    print_card()
+    return 0 if stats["rc"] == 0 else 1
+
+
 def print_card() -> None:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3483,6 +3816,14 @@ def main() -> int:
         phase_tp(dev)
         print_card()
         return 0
+    if sys.argv[1:] == ["--pipeline"]:
+        phase_build()
+        phase_pipeline(dev)
+        print_card()
+        return 0
+    if sys.argv[1:2] == ["--pipeline-readings"] and len(sys.argv) <= 3:
+        phase_build()
+        return pipeline_readings(dev, sys.argv[2] if len(sys.argv) == 3 else None)
 
     phase_build()
     # selection width from the decode's own padded tables: pnbs + E
@@ -3540,6 +3881,10 @@ def main() -> int:
     # before: the split decodes' and the detector ranks' launches add to
     # A's, B's, C's, the backward's and D's RPN counts
     new_launches.append(phase_multigpu(dev, decode_state))
+    # the user's workflow last, so that every earlier path runs as before:
+    # its stages' processes' launches add to A's, C's, the backward's and
+    # D's RPN counts
+    new_launches.append(phase_pipeline(dev))
     for counts in new_launches:
         for name, n in counts.items():
             launches[name] += n

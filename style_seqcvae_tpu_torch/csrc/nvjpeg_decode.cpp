@@ -1,15 +1,19 @@
-// JPEG decoding on the card through libnvjpeg (the CUDA toolkit's JPEG
-// decoder), behind a plain C interface for ctypes.
+// JPEG decoding and encoding on the card through libnvjpeg (the CUDA
+// toolkit's JPEG codec), behind a plain C interface for ctypes.
 //
 // Counterpart of the JAX package's PIL decode of JPEG files
-// (style_seqcvae_tpu/data/detection.py:170-176, scripts/serve.py:483-486).
-// Not a kernel of the port: it calls the library's decoder and is built
+// (style_seqcvae_tpu/data/detection.py:170-176, scripts/serve.py:483-486)
+// and of the PIL encode of the world generator's images
+// (scripts/make_world.py:315, quality 92, PIL's default 4:2:0 sampling).
+// Not a kernel of the port: it calls the library's codec and is built
 // into its own library (ops/kernels/_build.py::build_nvjpeg), so that a
 // machine without libnvjpeg still builds kernels A-D.
 //
-// One handle and one decode state serve the process; a mutex serialises
-// the decodes. The output is interleaved 8-bit BGR (NVJPEG_OUTPUT_BGRI)
-// written on the caller's stream into a buffer the caller allocated.
+// One handle, one decode state and one encode state serve the process; a
+// mutex serialises the calls. The decoder writes interleaved 8-bit BGR
+// (NVJPEG_OUTPUT_BGRI) on the caller's stream into a buffer the caller
+// allocated; the encoder reads interleaved 8-bit RGB (NVJPEG_INPUT_RGBI)
+// from the card and copies the bitstream to the caller's host buffer.
 
 #include <cuda_runtime_api.h>
 #include <nvjpeg.h>
@@ -21,6 +25,8 @@ namespace {
 std::mutex g_mutex;
 nvjpegHandle_t g_handle = nullptr;
 nvjpegJpegState_t g_state = nullptr;
+nvjpegEncoderState_t g_enc_state = nullptr;
+nvjpegEncoderParams_t g_enc_params = nullptr;
 
 int ensure_init() {
   if (g_handle != nullptr) return NVJPEG_STATUS_SUCCESS;
@@ -35,6 +41,22 @@ int ensure_init() {
   }
   g_handle = handle;
   g_state = state;
+  return NVJPEG_STATUS_SUCCESS;
+}
+
+int ensure_encoder(cudaStream_t stream) {
+  if (g_enc_state != nullptr) return NVJPEG_STATUS_SUCCESS;
+  nvjpegEncoderState_t state = nullptr;
+  nvjpegStatus_t st = nvjpegEncoderStateCreate(g_handle, &state, stream);
+  if (st != NVJPEG_STATUS_SUCCESS) return st;
+  nvjpegEncoderParams_t params = nullptr;
+  st = nvjpegEncoderParamsCreate(g_handle, &params, stream);
+  if (st != NVJPEG_STATUS_SUCCESS) {
+    nvjpegEncoderStateDestroy(state);
+    return st;
+  }
+  g_enc_state = state;
+  g_enc_params = params;
   return NVJPEG_STATUS_SUCCESS;
 }
 
@@ -75,6 +97,47 @@ int ssc_jpeg_decode_bgri(const unsigned char* data, size_t length, unsigned char
   image.pitch[0] = static_cast<size_t>(pitch);
   return nvjpegDecode(g_handle, g_state, data, length, NVJPEG_OUTPUT_BGRI, &image,
                       static_cast<cudaStream_t>(stream));
+}
+
+// Encode rgb (height, width, 3) uint8 RGB on the card, row pitch in bytes,
+// at quality (1-100) with 4:2:0 chroma and the standard Huffman tables (as
+// PIL's defaults), on stream. The bitstream's length goes to *length; when
+// it fits capacity it is copied to out (host memory) and the stream is
+// synchronised, else nothing is copied and NVJPEG_STATUS_INVALID_PARAMETER
+// comes back with *length set, so that the caller can retry with a larger
+// buffer. Returns an nvjpegStatus_t (a CUDA error as
+// NVJPEG_STATUS_EXECUTION_FAILED).
+int ssc_jpeg_encode_rgbi(const unsigned char* rgb, int width, int height, int pitch,
+                         int quality, unsigned char* out, size_t capacity, size_t* length,
+                         void* stream) {
+  std::lock_guard<std::mutex> lock(g_mutex);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int st = ensure_init();
+  if (st == NVJPEG_STATUS_SUCCESS) st = ensure_encoder(s);
+  if (st == NVJPEG_STATUS_SUCCESS) st = nvjpegEncoderParamsSetQuality(g_enc_params, quality, s);
+  if (st == NVJPEG_STATUS_SUCCESS)
+    st = nvjpegEncoderParamsSetSamplingFactors(g_enc_params, NVJPEG_CSS_420, s);
+  if (st == NVJPEG_STATUS_SUCCESS)
+    st = nvjpegEncoderParamsSetOptimizedHuffman(g_enc_params, 0, s);
+  if (st != NVJPEG_STATUS_SUCCESS) return st;
+  nvjpegImage_t image;
+  for (int c = 0; c < NVJPEG_MAX_COMPONENT; ++c) {
+    image.channel[c] = nullptr;
+    image.pitch[c] = 0;
+  }
+  image.channel[0] = const_cast<unsigned char*>(rgb);
+  image.pitch[0] = static_cast<size_t>(pitch);
+  st = nvjpegEncodeImage(g_handle, g_enc_state, g_enc_params, &image, NVJPEG_INPUT_RGBI,
+                         width, height, s);
+  if (st != NVJPEG_STATUS_SUCCESS) return st;
+  st = nvjpegEncodeRetrieveBitstream(g_handle, g_enc_state, nullptr, length, s);
+  if (st != NVJPEG_STATUS_SUCCESS) return st;
+  if (cudaStreamSynchronize(s) != cudaSuccess) return NVJPEG_STATUS_EXECUTION_FAILED;
+  if (*length > capacity) return NVJPEG_STATUS_INVALID_PARAMETER;
+  st = nvjpegEncodeRetrieveBitstream(g_handle, g_enc_state, out, length, s);
+  if (st != NVJPEG_STATUS_SUCCESS) return st;
+  if (cudaStreamSynchronize(s) != cudaSuccess) return NVJPEG_STATUS_EXECUTION_FAILED;
+  return NVJPEG_STATUS_SUCCESS;
 }
 
 // 1 when the status blames the file (not a JPEG nvjpeg can read, cut short

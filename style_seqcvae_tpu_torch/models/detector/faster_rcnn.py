@@ -40,6 +40,7 @@ import torch.distributed as dist
 from style_seqcvae_tpu_torch.device import resolve_device
 from style_seqcvae_tpu_torch.models.detector import resnet, vgg
 from style_seqcvae_tpu_torch.models.detector.defaults import InferenceConfig
+from style_seqcvae_tpu_torch.models.detector.layers import linear_f32
 from style_seqcvae_tpu_torch.models.detector.rpn import (
     RPNConfig,
     anchor_target,
@@ -147,13 +148,6 @@ def init_detector(cfg: DetectorConfig, *, seed: int = 0,
     return params
 
 
-def _linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """x @ w + b in the promoted dtype of x and w, as JAX promotes (VGG16's
-    head hands f32 features to bf16 weights)."""
-    dt = torch.promote_types(x.dtype, p["w"].dtype)
-    return torch.matmul(x.to(dt), p["w"].to(dt)) + p["b"]
-
-
 def _backbone(params: Dict[str, Any], cfg: DetectorConfig, images: torch.Tensor
               ) -> torch.Tensor:
     _check_cfg(cfg)
@@ -231,12 +225,6 @@ def cb_softmax_loss(labels_mh: torch.Tensor, logits: torch.Tensor,
     return per_ex * _stable_bce_with_logits(torch.softmax(logits, dim=-1), labels_mh)
 
 
-def _linear_f32(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """A training head in f32 whatever the compute dtype, as JAX's
-    ``preferred_element_type`` (the heads are small next to the backbone)."""
-    return torch.matmul(x.float(), p["w"].float()) + p["b"].float()
-
-
 def detector_forward_train(params: Dict[str, Any], cfg: DetectorConfig,
                            batch: Dict[str, torch.Tensor],
                            draws: Union[TrainDraws, torch.Generator],
@@ -294,8 +282,8 @@ def detector_forward_train(params: Dict[str, Any], cfg: DetectorConfig,
                                             in_w_a, out_w_a, group=group)
 
     pooled_feat = _pool_rois(params, cfg, base_feat, rois_s.reshape(B * R, 5))
-    cls_score = _linear_f32(params["cls_score"], pooled_feat)             # (BR, C)
-    bbox_pred = _linear_f32(params["bbox_pred"], pooled_feat)
+    cls_score = linear_f32(params["cls_score"], pooled_feat)              # (BR, C)
+    bbox_pred = linear_f32(params["bbox_pred"], pooled_feat)
     labels_flat = labels.reshape(B * R).long()
     if not cfg.class_agnostic:
         bp = bbox_pred.reshape(B * R, -1, 4)
@@ -311,7 +299,7 @@ def detector_forward_train(params: Dict[str, Any], cfg: DetectorConfig,
               "rcnn_box": loss_bbox}
 
     if cfg.num_att_classes:
-        att_logits = _linear_f32(params["cls_score_atts"], pooled_feat)
+        att_logits = linear_f32(params["cls_score_atts"], pooled_feat)
         atts_flat = labels_atts.reshape(B * R, -1)
         att_counts = torch.as_tensor(batch["att_counts"], dtype=torch.float32,
                                      device=att_logits.device)
@@ -360,8 +348,8 @@ def detector_forward_test(params: Dict[str, Any], cfg: DetectorConfig,
 
     P = rois.shape[1]
     pooled_feat = _pool_rois(params, cfg, base_feat, rois.reshape(B * P, 5))
-    cls_prob = torch.softmax(_linear(params["cls_score"], pooled_feat), dim=-1)
-    bbox_pred = _linear(params["bbox_pred"], pooled_feat)
+    cls_prob = torch.softmax(linear_f32(params["cls_score"], pooled_feat), dim=-1)
+    bbox_pred = linear_f32(params["bbox_pred"], pooled_feat)
     out = {
         "rois": rois, "roi_valid": roi_valid,
         "cls_prob": cls_prob.reshape(B, P, -1),
@@ -370,7 +358,7 @@ def detector_forward_test(params: Dict[str, Any], cfg: DetectorConfig,
     }
     if cfg.num_att_classes:
         out["cls_prob_atts"] = torch.sigmoid(
-            _linear(params["cls_score_atts"], pooled_feat)).reshape(B, P, -1)
+            linear_f32(params["cls_score_atts"], pooled_feat)).reshape(B, P, -1)
     return out
 
 

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from style_seqcvae_tpu_torch.models.detector.anchors import generate_anchors, shifted_anchors
+from style_seqcvae_tpu_torch.models.detector.layers import conv_bias
 from style_seqcvae_tpu_torch.ops.boxes import (
     bbox_overlaps,
     bbox_transform,
@@ -62,19 +63,15 @@ def init_rpn(gen: torch.Generator, in_ch: int = 1024, num_anchors: int = 12, *,
             "bbox": conv(num_anchors * 4, 512, 1)}
 
 
-def _conv(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return F.conv2d(x, p["w"], p["b"], padding=(p["w"].shape[-1] - 1) // 2)
-
-
 def rpn_heads(params: Dict[str, Any], base_feat: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, h, w, C) NHWC → class logits (B, h, w, A, 2), deltas
     (B, h, w, A, 4). The heads' outputs are reshaped from NHWC, which gives
     the (h, w, A) anchor order of ``shifted_anchors``."""
-    x = F.relu(_conv(base_feat.permute(0, 3, 1, 2), params["conv"]))
+    x = F.relu(conv_bias(base_feat.permute(0, 3, 1, 2), params["conv"]))
     B, _, h, w = x.shape
-    cls = _conv(x, params["cls"]).permute(0, 2, 3, 1).reshape(B, h, w, -1, 2)
-    bbox = _conv(x, params["bbox"]).permute(0, 2, 3, 1).reshape(B, h, w, -1, 4)
+    cls = conv_bias(x, params["cls"]).permute(0, 2, 3, 1).reshape(B, h, w, -1, 2)
+    bbox = conv_bias(x, params["bbox"]).permute(0, 2, 3, 1).reshape(B, h, w, -1, 4)
     return cls, bbox
 
 

@@ -19,6 +19,7 @@ from typing import Any, Dict, List
 import torch
 import torch.nn.functional as F
 
+from style_seqcvae_tpu_torch.models.detector.layers import conv_bias, linear_f32
 from style_seqcvae_tpu_torch.models.detector.resnet import _INPUT_PIXEL_STD
 
 # conv channels per block (torchvision vgg16.features)
@@ -59,8 +60,7 @@ def backbone(params: Dict[str, Any], images: torch.Tensor) -> torch.Tensor:
     ci = 0
     for bi, (_, n) in enumerate(_CFG):
         for _ in range(n):
-            p = params["convs"][ci]
-            x = F.relu(F.conv2d(x, p["w"], p["b"], padding=1))
+            x = F.relu(conv_bias(x, params["convs"][ci]))
             ci += 1
         if bi < 4:                      # the last max-pool is dropped
             x = F.max_pool2d(x, kernel_size=2, stride=2)
@@ -68,12 +68,11 @@ def backbone(params: Dict[str, Any], images: torch.Tensor) -> torch.Tensor:
 
 
 def head_to_tail(params: Dict[str, Any], pooled: torch.Tensor) -> torch.Tensor:
-    """RoI-pooled (R, 7, 7, 512) NHWC → fc6 / fc7 → (R, 4096), f32 as the
-    JAX package's products (``preferred_element_type`` f32)."""
+    """RoI-pooled (R, 7, 7, 512) NHWC → fc6 / fc7 → (R, 4096) f32. Under
+    bf16 compute fc7 takes fc6's f32 output unrounded, as JAX promotes it."""
     flat = pooled.permute(0, 3, 1, 2).reshape(pooled.shape[0], -1)
-    x = F.relu(torch.matmul(flat, params["fc6"]["w"]).float() + params["fc6"]["b"])
-    x = x.to(params["fc7"]["w"].dtype)
-    return F.relu(torch.matmul(x, params["fc7"]["w"]).float() + params["fc7"]["b"])
+    x = F.relu(linear_f32(params["fc6"], flat))
+    return F.relu(linear_f32(params["fc7"], x))
 
 
 def trainable_label(path_keys: List[str]) -> str:

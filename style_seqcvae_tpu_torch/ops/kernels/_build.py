@@ -132,8 +132,9 @@ def nvjpeg_available() -> bool:
 
 
 def build_nvjpeg() -> Path:
-    """Compile and link ``csrc/nvjpeg_decode.cpp`` against libnvjpeg into
-    its own library unless it is already built; returns its path."""
+    """Compile and link ``csrc/nvjpeg_decode.cpp`` (nvjpeg's decoder and
+    encoder) against libnvjpeg into its own library unless it is already
+    built; returns its path."""
     h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS).encode() + NVJPEG_SOURCE.read_bytes())
     out = BUILD_ROOT / f"nvjpeg-{h.hexdigest()[:16]}" / NVJPEG_LIB_NAME
     if out.exists():
@@ -204,6 +205,10 @@ def nvjpeg_library() -> ctypes.CDLL:
             # (data, length, out, pitch, stream)
             lib.ssc_jpeg_decode_bgri.argtypes = [ctypes.c_char_p, ctypes.c_size_t, p, i, p]
             lib.ssc_jpeg_decode_bgri.restype = i
+            # (rgb, width, height, pitch, quality, out, capacity, length, stream)
+            lib.ssc_jpeg_encode_rgbi.argtypes = [p, i, i, i, i, p, ctypes.c_size_t,
+                                                 ctypes.POINTER(ctypes.c_size_t), p]
+            lib.ssc_jpeg_encode_rgbi.restype = i
             lib.ssc_jpeg_status_kind.argtypes = [i]
             lib.ssc_jpeg_status_kind.restype = i
             for name in ("ssc_jpeg_status_name", "ssc_jpeg_subsampling_name"):

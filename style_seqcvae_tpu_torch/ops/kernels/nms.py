@@ -245,6 +245,10 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, threshold: float,
     if G == 0 or N == 0:            # nothing to launch: empty outputs
         return (torch.empty((G, 0), dtype=torch.int32, device=boxes.device),
                 torch.zeros((G, N), dtype=torch.bool, device=boxes.device))
+    from style_seqcvae_tpu_torch.ops.kernels import record_inputs
+
+    record_inputs("nms", boxes=boxes, scores=scores, threshold=threshold, max_out=max_out,
+                  presorted=presorted)
     if presorted:
         order = None
         sboxes = boxes.contiguous()

@@ -58,11 +58,13 @@ def _forward_kernel(features: torch.Tensor, rois: torch.Tensor, spatial_scale: f
         raise ValueError("features must be NHWC-contiguous")
     if rois.dtype != torch.float32 or not rois.is_contiguous():
         raise ValueError("rois must be contiguous float32")
-    from style_seqcvae_tpu_torch.ops.kernels import _build
+    from style_seqcvae_tpu_torch.ops.kernels import _build, record_inputs
 
     lib = _build.library()
     B, H, W, C = features.shape
     R, P = rois.shape[0], pooled
+    record_inputs("roi_align", features=features, rois=rois, spatial_scale=spatial_scale,
+                  pooled=pooled, sampling_ratio=sampling_ratio)
     out = torch.empty((R, P, P, C), dtype=features.dtype, device=features.device)
     if R == 0 or C == 0:
         return out
@@ -94,9 +96,12 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
         raise ValueError(f"the backward kernel needs a CUDA tensor, got {grad_out.device}")
     if rois.dtype != torch.float32 or not rois.is_contiguous():
         raise ValueError("rois must be contiguous float32")
-    from style_seqcvae_tpu_torch.ops.kernels import _build
+    from style_seqcvae_tpu_torch.ops.kernels import _build, record_inputs
 
     grad_out = grad_out.contiguous()
+    record_inputs("roi_align_backward", grad_out=grad_out, rois=rois,
+                  features_shape=tuple(features_shape), spatial_scale=spatial_scale,
+                  pooled=pooled_height, sampling_ratio=sampling_ratio)
     is_bf16 = grad_out.dtype == torch.bfloat16
     grad = torch.empty(features_shape, dtype=grad_out.dtype, device=grad_out.device)
     acc = (torch.empty(features_shape, dtype=torch.float32, device=grad_out.device)

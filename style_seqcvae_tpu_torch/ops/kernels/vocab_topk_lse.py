@@ -81,10 +81,11 @@ def matmul_top_k_with_lse(x: torch.Tensor, emb: torch.Tensor, k: int
         raise ValueError(f"unsupported device {x.device}")
     if not (x.is_contiguous() and emb.is_contiguous()):
         raise ValueError("x and emb must be contiguous")
-    from style_seqcvae_tpu_torch.ops.kernels import _build
+    from style_seqcvae_tpu_torch.ops.kernels import _build, record_inputs
 
     lib = _build.library()
     (R, E), V = x.shape, emb.shape[0]
+    record_inputs("vocab_topk_lse", x=x, emb=emb, k=k)
     vals = torch.empty((R, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((R, k), dtype=torch.int32, device=x.device)
     lse = torch.empty((R,), dtype=torch.float32, device=x.device)

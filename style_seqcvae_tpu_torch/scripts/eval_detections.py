@@ -8,7 +8,7 @@ COCOeval protocol (``evaluation/detection_eval.py``), on the host.
 The detections are COCO results, as the port's extract CLI writes them
 with ``--detections-output``. Crowd annotations are left out of the ground
 truth. ``--vis-dir`` (drawing the boxes onto the images) is refused: it
-draws text with PIL, which the port does not use (ROADMAP A13).
+draws text with PIL, which the port does not use (ROADMAP A13.5).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ parser.add_argument("--instances-json", required=True,
                     help="COCO instances JSON with the ground-truth annotations")
 parser.add_argument("--output", default="")
 parser.add_argument("--vis-dir", default="",
-                    help="not ported: drawing needs PIL (ROADMAP A13)")
+                    help="not ported: drawing needs PIL (ROADMAP A13.5)")
 parser.add_argument("--image-root", default="")
 parser.add_argument("--vis-thresh", type=float, default=0.5)
 
@@ -38,7 +38,7 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, Any]] = Non
     args = parser.parse_args(argv)
     if args.vis_dir:
         parser.error("--vis-dir is not ported: drawing the detections needs PIL, which the "
-                     "port does not use (ROADMAP A13)")
+                     "port does not use (ROADMAP A13.5)")
     with open(args.detections) as f:
         dets = json.load(f)
     with open(args.instances_json) as f:

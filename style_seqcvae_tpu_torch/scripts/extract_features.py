@@ -18,7 +18,9 @@ row when nothing is selected. Rows go to features.h5 through
 
 Flags are the JAX CLI's. ``--checkpoint-path`` names a ``.npz`` of the JAX
 detector tree (``weights.save_params_npz``) or a reference ``.pth``
-(``weights.load_detector_params``); Orbax directories are refused. Without
+(``weights.load_detector_params``), or with ``--checkpoint-name NAME`` the
+port's detector training checkpoint ``DIR/NAME``; Orbax directories and
+names are refused. Without
 it the weights are ``init_detector``'s, seeded 0 (not JAX's PRNGKey(0)
 draws). An image that the decoder refuses or finds corrupt, or that cannot
 be read, gets the JAX CLI's all-zero row; any other error, a CUDA one
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -58,6 +61,7 @@ from style_seqcvae_tpu_torch.models.detector.faster_rcnn import (
     init_detector,
 )
 from style_seqcvae_tpu_torch.ops.boxes import bbox_overlaps
+from style_seqcvae_tpu_torch.ops.kernels import report_launches
 from style_seqcvae_tpu_torch.utils.features_io import FeaturesWriter
 from style_seqcvae_tpu_torch.weights import load_detector_params
 
@@ -71,7 +75,8 @@ parser.add_argument("--checkpoint-path", default="",
                     help="a .npz of the JAX detector tree (weights.save_params_npz) or a "
                          "reference .pth; Orbax directories are refused")
 parser.add_argument("--checkpoint-name", default="",
-                    help="names an Orbax checkpoint in the JAX CLI; refused here")
+                    help="with --checkpoint-path DIR: the port's detector training checkpoint "
+                         "DIR/NAME (state.npz); an Orbax checkpoint is refused")
 parser.add_argument("--output", default="features.h5")
 parser.add_argument("--detections-output", default="",
                     help="also write COCO-results-format detections JSON")
@@ -100,8 +105,15 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, Any]] = Non
     and ``wall_s``."""
     _A = parser.parse_args(argv)
     if _A.checkpoint_name:
-        parser.error("--checkpoint-name names an Orbax checkpoint, which the port does not "
-                     "read: pass a .npz of the detector tree or a .pth as --checkpoint-path")
+        # DIR NAME is read only as the port's detector training checkpoint
+        # DIR/NAME/state.npz (the workflow passes the JAX CLI's flags)
+        named = os.path.join(_A.checkpoint_path, _A.checkpoint_name)
+        if not os.path.isfile(os.path.join(named, "state.npz")):
+            parser.error("--checkpoint-name names an Orbax checkpoint, which the port does not "
+                         "read: pass a .npz of the detector tree or a .pth as "
+                         "--checkpoint-path, or the directory and name of a checkpoint of "
+                         "the port's detector training")
+        _A.checkpoint_path = named
     device = resolve_device("cpu" if _A.cpu else None)
     # joins the process group a launcher describes, as the JAX CLI does; a
     # no-op in a plain run
@@ -248,4 +260,4 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, Any]] = Non
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(report_launches(main()))

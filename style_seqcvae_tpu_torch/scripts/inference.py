@@ -78,6 +78,7 @@ from style_seqcvae_tpu_torch.models.captioner import (
     hashed_random_embeddings,
     init_captioner,
 )
+from style_seqcvae_tpu_torch.ops.kernels import report_launches
 from style_seqcvae_tpu_torch.ops.kernels._build import KernelError
 from style_seqcvae_tpu_torch.parallel.mesh import make_mesh
 from style_seqcvae_tpu_torch.training.checkpointing import read_checkpoint
@@ -430,4 +431,4 @@ def _decode_one(_C, model_cfg, harness, batch, feats, sentiment, obj_att_embeds,
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(report_launches(main()))

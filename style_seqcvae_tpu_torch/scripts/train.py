@@ -78,6 +78,7 @@ from style_seqcvae_tpu_torch.models.captioner import (
     init_captioner,
     load_glove_embeddings,
 )
+from style_seqcvae_tpu_torch.ops.kernels import report_launches
 from style_seqcvae_tpu_torch.training.checkpointing import CheckpointManager
 from style_seqcvae_tpu_torch.training.trainer import (
     create_train_state,
@@ -329,4 +330,4 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, float]] = N
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(report_launches(main()))

@@ -71,6 +71,7 @@ from style_seqcvae_tpu_torch.models.detector.faster_rcnn import (
 )
 from style_seqcvae_tpu_torch.models.detector.rpn import RPNConfig
 from style_seqcvae_tpu_torch.models.detector.targets import ProposalTargetConfig
+from style_seqcvae_tpu_torch.ops.kernels import report_launches
 from style_seqcvae_tpu_torch.parallel.collectives import reduce_gradients, reduce_scalars
 from style_seqcvae_tpu_torch.parallel.mesh import Mesh, make_mesh
 from style_seqcvae_tpu_torch.parallel.multihost import (
@@ -330,4 +331,4 @@ def main(argv: Optional[List[str]] = None, stats: Optional[Dict[str, Any]] = Non
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(report_launches(main()))

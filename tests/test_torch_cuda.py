@@ -911,6 +911,24 @@ def test_nvjpeg_fixtures_against_pil(dev):
 
 
 @pytest.mark.cuda
+def test_nvjpeg_encode_round_trip(dev):
+    """nvjpeg's encoder (quality 92, 4:2:0, as make_world writes its images):
+    a JPEG of the fixture's size that nvjpeg decodes back near the encoded
+    pixels; a host tensor is refused."""
+    from style_seqcvae_tpu_torch.data.image_encode import encode_jpeg
+
+    rgb = np.load(IMAGE_FIXTURES / "photo_a.npy")
+    data = encode_jpeg(torch.from_numpy(rgb).to(dev))
+    assert idec.sniff_format(data) == "JPEG"
+    assert idec.jpeg_header(data)[2:] == (rgb.shape[0], rgb.shape[1], 3)
+    back = idec.decode_jpeg(data, dev).cpu().numpy()[:, :, ::-1].astype(np.float32)
+    diff = np.abs(back - rgb)
+    assert diff.mean() <= 3.0 and diff.max() <= 160, (diff.mean(), diff.max())
+    with pytest.raises(idec.ImageFormatError):
+        encode_jpeg(torch.from_numpy(rgb))
+
+
+@pytest.mark.cuda
 def test_serve_gpu_matches_cpu_from_shared_detections(dev):
     """The serve chain after the detector, on the card against the CPU from
     the card's own detector outputs, f32: equal tables and constraint
@@ -1001,6 +1019,29 @@ def test_roi_align_backward_kernel(dev, dtype, B, H, W, C, per_image):
     assert roi_align.launches == c_before + 1 and roi_align.backward_launches == before + 2
     assert (feats.grad.float() - want.float()).abs().max().item() <= \
         ROI_BWD_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+def test_linear_f32_on_bf16_operands(dev):
+    """``layers.linear_f32`` on bf16 operands on the card: cuBLAS's bf16
+    GEMM with an f32 result outside autograd, the upcast f32 product under
+    it; both f32 and within f32 rounding of the exact product."""
+    from style_seqcvae_tpu_torch.models.detector.layers import linear_f32
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(600, 2048, generator=gen, device=dev).bfloat16()
+    p = {"w": (torch.randn(2048, 405, generator=gen, device=dev) * 0.02).bfloat16(),
+         "b": (torch.randn(405, generator=gen, device=dev) * 0.1).bfloat16()}
+    want = x.double() @ p["w"].double() + p["b"].double()
+    with torch.no_grad():
+        got = linear_f32(p, x)
+    xg = x.clone().requires_grad_(True)
+    got_grad = linear_f32(p, xg)
+    got_grad.sum().backward()
+    for y in (got, got_grad):
+        assert y.dtype == torch.float32
+        assert (y.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert xg.grad.dtype == torch.bfloat16 and bool(torch.isfinite(xg.grad.float()).all())
 
 
 @pytest.mark.cuda

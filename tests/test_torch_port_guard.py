@@ -62,7 +62,10 @@ def test_port_imports_no_jax():
                  "evaluation.detection_eval", "scripts.train_detector",
                  "scripts.eval_detections", "parallel.multihost", "parallel.mesh",
                  "parallel.collectives", "parallel.distributed_worker",
-                 "parallel.tensor_parallel"):
+                 "parallel.tensor_parallel", "preprocessing", "data.image_encode",
+                 "scripts.preprocess", "scripts.build_vocabulary",
+                 "scripts.make_synthetic_corpus", "scripts.make_world",
+                 "scripts.eval_baselines", "scripts.style_report", "scripts.three_stage"):
         assert "style_seqcvae_tpu_torch." + name in modules
     code = "\n".join([
         "import sys",
