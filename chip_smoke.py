@@ -155,7 +155,9 @@ one JSON line per phase as it goes:
    RoIs laid out as ``proposal_target`` yields them, f32 and bf16:
    ``roi_align_train``, kernel C against its plain version, and
    ``roi_align_backward`` (the hand-written backward of RoIAlign) against
-   autograd of the plain RoIAlign (error relative to the largest gradient);
+   autograd of the plain RoIAlign (error relative to the largest gradient)
+   and a second launch bit for bit (``deterministic``), also in bf16 on the
+   workflow's stage-1 shapes (8, 24, 32, 1024) with 1,024 RoIs;
    and ``nms_rpn_train``, kernel D at the RPN's
    training call (4 x 12,000, 0.7, 2,000 kept), 0 mismatches;
 26. ``detector_train``: the training step at full width (ResNet-101, 81
@@ -328,6 +330,7 @@ from style_seqcvae_tpu_torch.scripts import load_test
 from style_seqcvae_tpu_torch.scripts import make_world as make_world_cli
 from style_seqcvae_tpu_torch.scripts import train as train_cli
 from style_seqcvae_tpu_torch.scripts import three_stage as three_stage_cli
+from style_seqcvae_tpu_torch.scripts.time_detector import train_rois
 from style_seqcvae_tpu_torch.scripts import train_detector as train_detector_cli
 from style_seqcvae_tpu_torch.serving import make_serve_fn
 from style_seqcvae_tpu_torch.training.checkpointing import read_checkpoint
@@ -2724,14 +2727,18 @@ DT_CLASSES, DT_ATTS, DT_GT = 81, 196, 8
 DT_PRE, DT_POST, DT_THRESH, DT_ROIS = 12000, 2000, 0.7, 128
 DT_C4 = (DT_BATCH, 40, 64, 1024)
 DT_STEPS, DT_TIMED = 8, 5
-# the RoIAlign backward adds with f32 atomics in an order that changes from
-# run to run and merges a bin's samples per pixel before weighting: a few
-# ulps of the largest gradient from autograd of the plain version; in bf16
-# both round their f32 sums once (one bf16 ulp, 2^-8 of the largest)
+# the RoIAlign backward gathers each pixel's f32 sum in a fixed order (RoIs,
+# row bins, column bins) and merges a bin's samples per pixel before
+# weighting: a few ulps of the largest gradient from autograd of the plain
+# version; in bf16 both round their f32 sums once (one bf16 ulp, 2^-8 of
+# the largest). Two launches must be equal to the bit.
 ROI_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
-# f32 operations per grad_out element: 16 corner products and atomic adds
-# at S = 2, and the 1 / S^2 scale
+# f32 operations per grad_out element: 16 corner products and adds at S = 2,
+# and the 1 / S^2 scale
 ROI_BWD_OPS_PER_GRAD = 33
+# the workflow's stage 1 (ResNet-50, 8 images of 384 x 512 a step, 128 RoIs
+# an image): C4 map and RoIs of its backward
+WF_C4, WF_IMAGE = (8, 24, 32, 1024), (384, 512)
 # the train CLI on the JPEG fixtures: 8 images of 480 x 640, 2 a step, one
 # epoch; then the extract CLI from its checkpoint at --thresh 0 (4 steps
 # leave every class below extract_cli's 0.013, so that eval_detections
@@ -2773,27 +2780,50 @@ def train_detector_batch(dev: torch.device, batch: int, canvas, image, n_atts: i
                                         device=dev).float()}
 
 
-def proposal_target_rois(gen: torch.Generator, dev: torch.device) -> torch.Tensor:
-    """512 RoIs laid out as proposal_target yields them: image-major, 128
-    an image with its index in column 0, boxes over the 600 x 1000 image
-    (heavily overlapping, a quarter near 8 ground-truth boxes) and a few
-    all-zero rows of images short of proposals."""
-    B, R = DT_BATCH, DT_ROIS
-    h, w = DT_IMAGE
-    gt_ctr = torch.rand(B, DT_GT, 2, generator=gen, device=dev) * torch.tensor(
-        [float(w), float(h)], device=dev)
-    ctr = torch.rand(B, R, 2, generator=gen, device=dev) * torch.tensor(
-        [float(w), float(h)], device=dev)
-    near = gt_ctr[:, torch.arange(R // 4, device=dev) % DT_GT]
-    ctr[:, :R // 4] = near + torch.randn(B, R // 4, 2, generator=gen, device=dev) * 8.0
-    wh = torch.rand(B, R, 2, generator=gen, device=dev) * 400.0 + 16.0
-    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
-    boxes[..., 0::2] = boxes[..., 0::2].clamp(0, w - 1)
-    boxes[..., 1::2] = boxes[..., 1::2].clamp(0, h - 1)
-    col = torch.arange(B, device=dev, dtype=torch.float32)[:, None, None].expand(B, R, 1)
-    rois = torch.cat([col, boxes], dim=-1)
-    rois[:, -2:, 1:] = 0.0
-    return rois.reshape(B * R, 5).contiguous()
+def roi_backward_row(gen: torch.Generator, dev: torch.device, rois: torch.Tensor, shape,
+                     dtype: torch.dtype, kw: dict, **extra) -> dict:
+    """The RoIAlign backward kernel on a seeded grad_out for ``rois`` and
+    features of ``shape``: against autograd of the plain version (error
+    relative to the largest gradient), a second launch compared bit for bit,
+    its time and bound. Emits the row and fails on either check."""
+    R = rois.shape[0]
+    size = torch.tensor([], dtype=dtype).element_size()
+    grad_out = torch.randn(R, det.POOLING_SIZE, det.POOLING_SIZE, shape[-1], generator=gen,
+                           device=dev).to(dtype)
+
+    def kernel():
+        return roi_align.roi_align_backward(grad_out, rois, shape, **kw)
+
+    def plain():
+        return roi_align.roi_align_backward_plain(grad_out, rois, shape, dtype, **kw)
+
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    deterministic = torch.equal(got.view(bits), again.view(bits))
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    n_grad = grad_out.numel()
+    kernel_ms, kernel_range = time_ms_range(kernel)
+    row = {"phase": "kernel", "name": "roi_align_backward",
+           "dtype": str(dtype).split(".")[-1], "features": list(shape), "rois": R, **extra,
+           "max_abs_err": err, "max_grad": scale, "rel_err": err / scale,
+           "tolerance_rel_to_max": ROI_BWD_TOL[dtype], "deterministic": deterministic,
+           "kernel_ms": kernel_ms, "kernel_ms_range": kernel_range,
+           "plain_ms": time_ms(plain, 2),
+           # no PyTorch call computes RoIAlign or its gradient (no torchvision)
+           "library_ms": None,
+           # grad_out read once, grad_features written once
+           **bound(n_grad * size + rois.numel() * 4 + int(np.prod(shape)) * size,
+                   ROI_BWD_OPS_PER_GRAD * n_grad, PEAK_OPS[torch.float32])}
+    row["bound_ratio"] = kernel_ms / row["bound_ms"]
+    emit(row)
+    if not err <= ROI_BWD_TOL[dtype] * scale or not scale > 0:
+        fail(f"roi_align_backward ({row['dtype']}) disagrees with autograd of the plain "
+             f"version: {row}")
+    if not deterministic:
+        fail(f"roi_align_backward ({row['dtype']}): two launches on the same inputs differ")
+    return row
 
 
 def phase_detector_train_kernels(dev: torch.device) -> dict:
@@ -2802,7 +2832,7 @@ def phase_detector_train_kernels(dev: torch.device) -> dict:
     RPN's training call (4 x 12,000, 0.7, 2,000 kept) against its plain
     version. Returns the summary row of the backward (f32)."""
     gen = torch.Generator(device=dev).manual_seed(18)
-    rois = proposal_target_rois(gen, dev)
+    rois = train_rois(gen, DT_BATCH, DT_IMAGE)
     R = rois.shape[0]
     kw = dict(spatial_scale=1.0 / det.FEAT_STRIDE, pooled_height=det.POOLING_SIZE,
               pooled_width=det.POOLING_SIZE, sampling_ratio=2)
@@ -2833,41 +2863,13 @@ def phase_detector_train_kernels(dev: torch.device) -> dict:
                  f"shapes: {row}")
         del feats, got, want, err
 
-        grad_out = torch.randn(R, det.POOLING_SIZE, det.POOLING_SIZE, DT_C4[-1],
-                               generator=gen, device=dev).to(dtype)
-
-        def kernel():
-            return roi_align.roi_align_backward(grad_out, rois, DT_C4, **kw)
-
-        def plain():
-            return roi_align.roi_align_backward_plain(grad_out, rois, DT_C4, dtype, **kw)
-
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        scale = want.float().abs().max().item()
-        err = (got.float() - want.float()).abs().max().item()
-        n_grad = grad_out.numel()
-        kernel_ms, kernel_range = time_ms_range(kernel)
-        row = {"phase": "kernel", "name": "roi_align_backward",
-               "dtype": str(dtype).split(".")[-1], "features": list(DT_C4), "rois": R,
-               "max_abs_err": err, "max_grad": scale, "rel_err": err / scale,
-               "tolerance_rel_to_max": ROI_BWD_TOL[dtype],
-               "kernel_ms": kernel_ms, "kernel_ms_range": kernel_range,
-               "plain_ms": time_ms(plain, 2),
-               # no PyTorch call computes RoIAlign or its gradient (no torchvision)
-               "library_ms": None,
-               # grad_out read once, grad_features written once: the
-               # kernel's zeroing pass over its f32 accumulator is its own
-               # overhead, not work the function needs
-               **bound(n_grad * size + rois.numel() * 4 + n_feat * size,
-                       ROI_BWD_OPS_PER_GRAD * n_grad, PEAK_OPS[torch.float32])}
-        emit(row)
-        if not err <= ROI_BWD_TOL[dtype] * scale or not scale > 0:
-            fail(f"roi_align_backward ({row['dtype']}) disagrees with autograd of the plain "
-                 f"version: {row}")
+        row = roi_backward_row(gen, dev, rois, DT_C4, dtype, kw)
         if dtype == torch.float32:
             out["roi_align_backward"] = row
-        del grad_out, got, want
+    # on the workflow's stage-1 shapes (PR 21's 0.280-0.283 ms there)
+    roi_backward_row(gen, dev, train_rois(gen, WF_C4[0], WF_IMAGE), WF_C4,
+                     torch.bfloat16, kw, inputs="the workflow's stage 1 (ResNet-50, 8 images "
+                     "of 384 x 512)")
 
     boxes, scores = seeded_nms_inputs(gen, dev, DT_BATCH, DT_PRE, True)
     got = nms.nms(boxes, scores, DT_THRESH, max_out=DT_POST, presorted=True)

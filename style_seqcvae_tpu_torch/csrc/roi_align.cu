@@ -1,5 +1,5 @@
 // RoIAlign forward and backward, for Hopper (sm_90a). The backward is
-// described at roi_align_backward_kernel below.
+// described further below, before its plan pass.
 //
 // Replaces the TPU kernel style_seqcvae_tpu/ops/pallas/roi_align.py::
 // roi_align_pallas (body `_kernel`, :27-89): NHWC features (B, H, W, C) in
@@ -252,69 +252,294 @@ void launch(const void* feat, const void* rois, void* out, int B, int H, int W, 
 // models/detector/faster_rcnn.py:143), whose transpose is a scatter-add;
 // the port's training path needs it as a kernel on the card.
 //
-// grad_out (R, P, P, C) in f32 or bf16 -> grad_features (B, H, W, C): each
-// output bin's gradient, times 1 / S^2 as the forward's mean, is added to
-// every feature pixel the bin's samples touch, with the forward's own taps
-// and weights (tap_tables: the same coordinates, clamps, empty samples and
-// merged row / column weights), so it is the adjoint of the forward and of
-// the plain version's gather. Sums run in f32 with atomicAdd into a zeroed
-// f32 buffer (the output itself in f32, a scratch buffer in bf16, then cast
-// with round-to-nearest-even).
+// grad_out (R, P, P, C) in f32 or bf16 -> grad_features (B, H, W, C) in the
+// same dtype: each output bin's gradient, times 1 / S^2 as the forward's
+// mean, goes to every feature pixel the bin's samples touch, with the
+// forward's own taps and weights (tap_tables: the same coordinates, clamps,
+// empty samples and merged row and column weights), so it is the adjoint of
+// the forward and of the plain version's gather. Sums run in f32; bf16 is
+// rounded once, to nearest even.
 //
 // Bound on an H100 SXM: memory. At the training path's (4, 40, 64, 1024)
-// with 512 RoIs in f32 it must read 103 MB of grad_out and zero and write
-// 42 MB of grad_features, about 0.06 ms at 3.35 TB/s.
+// with 512 RoIs it must read 103 MB of grad_out and write 42 MB of
+// grad_features in f32, 0.0432 ms at 3.35 TB/s (0.0216 ms in bf16); its
+// ~0.2 G multiply-adds are far below that.
 //
-// Design (simple first): a block per RoI, a thread per channel (strided
-// over C), so that a warp's 32 atomics hit 32 consecutive floats of one
-// pixel: one coalesced 128-byte reduction in L2. Overlapping RoIs of one
-// image contend on the same pixels; the atomics add in another order on
-// every run.
-template <typename G>
-__global__ void __launch_bounds__(kMaxThreads)
-roi_align_backward_kernel(const G* __restrict__ grad_out, const float* __restrict__ rois,
-                          float* __restrict__ grad_feat, int B, int H, int W, int C,
-                          float spatial_scale, int P, int S) {
-  __shared__ int row_pos[kMaxTaps], col_pos[kMaxTaps], row_n[kMaxTaps / 2],
-      col_n[kMaxTaps / 2];
-  __shared__ float row_w[kMaxTaps], col_w[kMaxTaps];
+// Design: a gather, so that no two threads add into one pixel. A plan pass
+// (a warp per RoI) writes each RoI's clamped batch index, its tap tables and
+// the first and last map row and column its taps touch into a small buffer
+// (plan_words ints a RoI), so that the gather reads them instead of
+// recomputing them in every block. The gather runs a block per (image, tile
+// of kTileRows x kTileCols map pixels, slab of channels): warp i owns the
+// tile's row i, lane l eight 16-byte channel vectors 32 apart in f32 (four
+// in bf16), and each thread its row's kTileCols pixels x 32 channels as 64
+// f32 sums in registers. The block keeps, 128 RoIs at a time, those of its
+// image whose taps meet the tile, in ascending order (a ballot and a prefix
+// over the warps). For each kept RoI a warp writes, a lane a bin, the bin's
+// merged weight on every tile row and column into shared memory (0 where
+// its taps miss the line) and ballots the bins that meet the tile's rows
+// and its columns. Each thread then takes the kept RoIs in order, the row
+// bins with a weight on its row in order, and for each the column bins in
+// order: it reads the bin's grad_out vectors (16-byte loads) once and adds
+// w_y * w_x * g to both columns' sums (a zero weight adds nothing). Each
+// pixel's sum therefore runs over RoIs, row bins and column bins in a fixed
+// order, so two launches are equal to the bit. Every pixel is written once,
+// in the output dtype, with 16-byte stores; a tile no RoI touches writes
+// zeros. So nothing zeroes the map first, no f32 buffer stands in for a bf16
+// output, and no cast pass follows. When C is not a multiple of the vector,
+// or a pointer is not 16-byte aligned, each thread reads and writes its
+// channels one by one. Narrow tiles keep 32 channels a thread, over which
+// the per-bin work of a sum spreads; the price is that a bin's vectors are
+// read again by the neighbouring tiles' blocks and by the rows of its own
+// (ops/kernels/ablate_roi_backward.py times the parts and the other shapes).
+// Measured on an NVIDIA H100 80GB HBM3 (700.00 W), a CUDA graph of 10
+// launches (scripts/time_detector.py): 0.115 ms in f32 and 0.098 ms in bf16
+// at the training shapes (2.7x and 4.5x the bound), 0.148 ms in bf16 on the
+// workflow's (8, 24, 32, 1024) with 1,024 RoIs; the old design (a block per
+// RoI, f32 atomics into a zeroed map, a cast pass for bf16) took 0.400,
+// 0.425 and 0.702 ms. In f32, 0.050 ms of it is grad_out read again from
+// L2 rather than L1, 0.019 ms the plan pass and the map's writes.
+constexpr int kPlanHeader = 8;    // batch index, row span, column span, padding
+constexpr int kTileRows = 4;      // a gather block's map rows, a warp each
+constexpr int kTileCols = 2;      // its map columns, in each thread's registers
+constexpr int kSums = 64;         // f32 sums a thread: kTileCols x 32 channels
+constexpr int kGatherThreads = 32 * kTileRows;
+constexpr int kWarpsPerSM = 16;   // resident gather warps an SM: 128 registers a thread
+constexpr int kListBytes = 32 * 1024;  // shared memory for a batch of RoIs' tap weights
 
-  const int r = blockIdx.x;
+// int32 words of one RoI's plan: the header, row_n and col_n [P], then
+// row_pos, col_pos, row_w and col_w [P * 2S] (tap_tables' layout); a
+// multiple of 4, so that every header is 16-byte aligned
+__host__ __device__ __forceinline__ int plan_words(int P, int S) {
+  return (kPlanHeader + 2 * P + 8 * P * S + 3) / 4 * 4;
+}
+
+// Plan pass, a warp per RoI: [0] the batch index clamped into [0, B),
+// [1], [2] the first and last map row its taps touch, [3], [4] the same for
+// columns (INT_MAX and -1 when it touches none), then its tap tables.
+__global__ void __launch_bounds__(32)
+roi_backward_plan_kernel(const float* __restrict__ rois, int* __restrict__ plan, int B, int H,
+                         int W, float spatial_scale, int P, int S) {
+  const int r = blockIdx.x, L = 2 * P * S, S2 = 2 * S;
   const float* roi = rois + static_cast<size_t>(r) * 5;
-  const int b = min(max(static_cast<int>(roi[0]), 0), B - 1);
-  const int S2 = 2 * S;
-  tap_tables(roi, spatial_scale, P, S, H, W, row_pos, col_pos, row_n, col_n, row_w, col_w);
-  __syncthreads();
+  int* pl = plan + static_cast<size_t>(r) * plan_words(P, S);
+  int* n = pl + kPlanHeader;
+  int* pos = n + 2 * P;
+  float* w = reinterpret_cast<float*>(pos + 2 * L);
+  tap_tables(roi, spatial_scale, P, S, H, W, pos, pos + L, n, n + P, w, w + L);
+  // each thread reads back the tables it wrote (tap_tables strides by blockDim)
+  int lo[2] = {INT_MAX, INT_MAX}, hi[2] = {-1, -1};
+  for (int t = threadIdx.x; t < 2 * P; t += blockDim.x) {
+    const int d = t < P ? 0 : 1;
+    const int* at = pos + d * L + (t - d * P) * S2;
+    for (int a = 0; a < n[t]; ++a) {
+      lo[d] = min(lo[d], at[a]);
+      hi[d] = max(hi[d], at[a]);
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < 2; ++d)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo[d] = min(lo[d], __shfl_xor_sync(ssc::kFullMask, lo[d], o));
+      hi[d] = max(hi[d], __shfl_xor_sync(ssc::kFullMask, hi[d], o));
+    }
+  if (threadIdx.x == 0) {
+    pl[0] = min(max(static_cast<int>(roi[0]), 0), B - 1);
+    pl[1] = lo[0];
+    pl[2] = hi[0];
+    pl[3] = lo[1];
+    pl[4] = hi[1];
+  }
+}
 
+// Gather pass (see the design above). batch: the kept RoIs whose tap
+// weights the dynamic shared memory holds at once.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kGatherThreads, kWarpsPerSM * 32 / kGatherThreads)
+roi_align_backward_kernel(const T* __restrict__ grad_out, const int* __restrict__ plan,
+                          T* __restrict__ grad_feat, int R, int H, int W, int C, int P, int S,
+                          int batch) {
+  using Vec = ssc::Vec16<T>;
+  constexpr int N = Vec::kN;
+  constexpr int TW = kTileCols;
+  constexpr int V = kSums / (TW * N);  // 16-byte channel vectors a thread: 8 f32, 4 bf16
+  constexpr int kLines = kTileRows + TW;
+  extern __shared__ int4 smem[];
+  int* kept = reinterpret_cast<int*>(smem);  // [kGatherThreads] RoI indices, ascending
+  int* warp_kept = kept + kGatherThreads;     // [kTileRows]
+  // [batch][2]: the bins whose taps meet the tile's rows, and its columns
+  unsigned* masks = reinterpret_cast<unsigned*>(warp_kept + kTileRows);
+  // [batch][kLines][P]: each bin's merged weight on each tile row, then
+  // column; 0 where its taps miss the line
+  float* wts = reinterpret_cast<float*>(masks + 2 * batch);
+
+  const int tiles_x = (W + TW - 1) / TW;
+  const int y0 = blockIdx.x / tiles_x * kTileRows, x0 = blockIdx.x % tiles_x * TW;
+  const int b = blockIdx.y, row = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the lane's vectors: 32 apart, so that a warp's loads of each are coalesced
+  const int c0 = (blockIdx.z * 32 * V + lane) * N;
+  // channels of vector v in the map (<= 0: past the last one)
+  auto valid = [&](int v) { return min(N, C - c0 - 32 * N * v); };
+  const int words = plan_words(P, S), L = 2 * P * S, S2 = 2 * S;
+
+  float acc[TW][V][N];
+#pragma unroll
+  for (int j = 0; j < TW; ++j)
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[j][v][e] = 0.0f;
+
+  for (int base = 0; base < R; base += kGatherThreads) {
+    // keep the RoIs of this image whose taps meet the tile, in ascending order
+    const int r = base + threadIdx.x;
+    bool keep = false;
+    if (r < R) {
+      const int* h = plan + static_cast<size_t>(r) * words;
+      const int4 f = *reinterpret_cast<const int4*>(h);  // batch, row span, column start
+      keep = f.x == b && f.y < y0 + kTileRows && f.z >= y0 && f.w < x0 + TW && h[4] >= x0;
+    }
+    const unsigned ballot = __ballot_sync(ssc::kFullMask, keep);
+    if (lane == 0) warp_kept[row] = __popc(ballot);
+    __syncthreads();
+    int first = 0, total = 0;
+    for (int i = 0; i < kTileRows; ++i) {
+      first += i < row ? warp_kept[i] : 0;
+      total += warp_kept[i];
+    }
+    if (keep) kept[first + __popc(ballot & ((1u << lane) - 1u))] = r;
+    __syncthreads();
+
+    for (int k0 = 0; k0 < total; k0 += batch) {
+      const int nk = min(batch, total - k0);
+      // warp w lists the kept RoIs w, w + kTileRows, ...: lane t < 2P takes
+      // bin t (rows, then columns), writes its weight on each tile line and
+      // ballots whether its taps meet the tile at all
+      for (int k = row; k < nk; k += kTileRows) {
+        const int* pl = plan + static_cast<size_t>(kept[k0 + k]) * words;
+        float* wk = wts + static_cast<size_t>(k) * kLines * P;
+        unsigned long long hits = 0;
+        for (int t0 = 0; t0 < 2 * P; t0 += 32) {
+          const int t = t0 + lane;
+          bool hit = false;
+          if (t < 2 * P) {
+            const int d = t < P ? 0 : 1, n = pl[kPlanHeader + t];
+            const int* pos = pl + kPlanHeader + 2 * P + d * L + (t - d * P) * S2;
+            const float* wt = reinterpret_cast<const float*>(pos + 2 * L);
+            const int start = d ? x0 : y0, lines = d ? TW : kTileRows;
+            float* line = wk + (d ? kTileRows * P : 0) + t - d * P;  // line l at line[l * P]
+            for (int l = 0; l < lines; ++l) line[l * P] = 0.0f;
+            for (int a = 0; a < n; ++a) {
+              const int l = pos[a] - start;
+              if (l >= 0 && l < lines) {  // a bin's taps are merged: one a line at most
+                line[l * P] = wt[a];
+                hit = true;
+              }
+            }
+          }
+          hits |= static_cast<unsigned long long>(__ballot_sync(ssc::kFullMask, hit)) << t0;
+        }
+        if (lane == 0) {
+          const unsigned long long bins = (1ull << P) - 1;
+          masks[2 * k] = static_cast<unsigned>(hits & bins);
+          masks[2 * k + 1] = static_cast<unsigned>((hits >> P) & bins);
+        }
+      }
+      __syncthreads();
+
+      if (valid(0) > 0) {
+        for (int k = 0; k < nk; ++k) {
+          unsigned row_bins = masks[2 * k];
+          const unsigned col_bins = masks[2 * k + 1];
+          if (col_bins == 0) continue;
+          const float* wk = wts + static_cast<size_t>(k) * kLines * P;
+          const float* wrow = wk + row * P;
+          const float* wcol = wk + kTileRows * P;
+          const T* g_roi = grad_out + static_cast<size_t>(kept[k0 + k]) * P * P * C + c0;
+          while (row_bins) {  // in ascending order
+            const int ph = __ffs(row_bins) - 1;
+            row_bins &= row_bins - 1;
+            const float wy = wrow[ph];
+            if (wy == 0.0f) continue;
+            const T* g_row = g_roi + static_cast<size_t>(ph) * P * C;
+            for (unsigned m = col_bins; m; m &= m - 1) {  // in ascending order
+              const int pw = __ffs(m) - 1;
+              const T* g = g_row + static_cast<size_t>(pw) * C;
+              uint4 q[V];
+#pragma unroll
+              for (int v = 0; v < V; ++v)
+                q[v] = valid(v) > 0 ? load_vec<T, kVec>(g + 32 * N * v, valid(v))
+                                    : make_uint4(0u, 0u, 0u, 0u);
+              float w[TW];
+#pragma unroll
+              for (int j = 0; j < TW; ++j) w[j] = wy * wcol[j * P + pw];
+#pragma unroll
+              for (int v = 0; v < V; ++v)
+#pragma unroll
+                for (int i = 0; i < N; ++i) {
+                  const float x = Vec::get(q[v], i);
+#pragma unroll
+                  for (int j = 0; j < TW; ++j) acc[j][v][i] = fmaf(w[j], x, acc[j][v][i]);
+                }
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  const int y = y0 + row;
+  if (valid(0) <= 0 || y >= H) return;
+  // the forward's mean: a product where 1 / S^2 is exact
   const float denom = static_cast<float>(S * S);
   const bool exact_inverse = ((S * S) & (S * S - 1)) == 0;
   const float inv = 1.0f / denom;
-  const G* src = grad_out + static_cast<size_t>(r) * P * P * C;
-  float* img = grad_feat + static_cast<size_t>(b) * H * W * C;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    for (int ph = 0; ph < P; ++ph) {
-      for (int pw = 0; pw < P; ++pw) {
-        const float go = ssc::to_float(src[static_cast<size_t>(ph * P + pw) * C + c]);
-        const float g = exact_inverse ? go * inv : __fdiv_rn(go, denom);
-        if (g == 0.0f) continue;
-        for (int a = 0; a < row_n[ph]; ++a) {
-          float* line = img + static_cast<size_t>(row_pos[ph * S2 + a]) * W * C + c;
-          const float gy = row_w[ph * S2 + a] * g;
-          for (int t = 0; t < col_n[pw]; ++t)
-            atomicAdd(line + static_cast<size_t>(col_pos[pw * S2 + t]) * C,
-                      gy * col_w[pw * S2 + t]);
-        }
+  T* dst = grad_feat + (static_cast<size_t>(b) * H + y) * W * C + c0;
+#pragma unroll
+  for (int j = 0; j < TW; ++j) {
+    if (x0 + j >= W) break;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (valid(v) <= 0) break;
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        acc[j][v][e] = exact_inverse ? acc[j][v][e] * inv : __fdiv_rn(acc[j][v][e], denom);
+      T* px = dst + static_cast<size_t>(x0 + j) * C + 32 * N * v;
+      const uint4 q = pack16<T>(acc[j][v]);
+      if (kVec) {
+        *reinterpret_cast<uint4*>(px) = q;
+      } else {
+        const T* e = reinterpret_cast<const T*>(&q);
+        for (int i = 0; i < valid(v); ++i) px[i] = e[i];
       }
     }
   }
 }
 
-// f32 -> bf16, round to nearest even
-__global__ void cast_to_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
-                                    size_t n) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x)
-    dst[i] = __float2bfloat16_rn(src[i]);
+template <typename T>
+void launch_backward(const void* grad_out, const int* plan, void* grad_feat, int B, int H, int W,
+                     int C, int R, int P, int S, cudaStream_t st) {
+  constexpr int N = ssc::Vec16<T>::kN;
+  constexpr int V = kSums / (kTileCols * N);
+  constexpr int kLines = kTileRows + kTileCols;
+  const uintptr_t ends =
+      reinterpret_cast<uintptr_t>(grad_out) | reinterpret_cast<uintptr_t>(grad_feat);
+  const bool vec = C % N == 0 && (ends & 15) == 0;
+  const int batch = max(1, min(kGatherThreads, kListBytes / ((kLines * P + 2) * 4)));
+  const size_t smem = (kGatherThreads + kTileRows + 2 * batch) * sizeof(int) +
+                      static_cast<size_t>(batch) * kLines * P * sizeof(float);
+  const dim3 grid(((H + kTileRows - 1) / kTileRows) * ((W + kTileCols - 1) / kTileCols), B,
+                  ((C + N - 1) / N + 32 * V - 1) / (32 * V));
+  if (vec)
+    roi_align_backward_kernel<T, true><<<grid, kGatherThreads, smem, st>>>(
+        static_cast<const T*>(grad_out), plan, static_cast<T*>(grad_feat), R, H, W, C, P, S,
+        batch);
+  else
+    roi_align_backward_kernel<T, false><<<grid, kGatherThreads, smem, st>>>(
+        static_cast<const T*>(grad_out), plan, static_cast<T*>(grad_feat), R, H, W, C, P, S,
+        batch);
 }
 
 }  // namespace
@@ -332,36 +557,31 @@ extern "C" int ssc_roi_align(const void* feat, const void* rois, void* out, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// int32 words of one RoI's plan (the backward's plan buffer holds R of them)
+extern "C" int ssc_roi_align_backward_plan_words(int pooled, int sampling) {
+  return plan_words(pooled, sampling);
+}
+
 // grad_out (R, P, P, C) -> grad_feat (B, H, W, C), both f32 or both bf16;
-// acc is a (B, H, W, C) f32 buffer for the sums when they are bf16 (else
-// null: the sums go to grad_feat). Zeroes the sums, accumulates, and casts
-// for bf16. Needs P * S <= 32. Returns cudaGetLastError().
+// plan: R * ssc_roi_align_backward_plan_words(P, S) int32 words, written by
+// the plan pass and read by the gather. Writes every element of grad_feat
+// once. Needs P * S <= 32. Returns cudaGetLastError().
 extern "C" int ssc_roi_align_backward(const void* grad_out, const void* rois, void* grad_feat,
-                                      void* acc, int B, int H, int W, int C, int R,
+                                      void* plan, int B, int H, int W, int C, int R,
                                       float spatial_scale, int pooled, int sampling, int is_bf16,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t n = static_cast<size_t>(B) * H * W * C;
-  float* sums = is_bf16 ? static_cast<float*>(acc) : static_cast<float*>(grad_feat);
-  cudaError_t err = cudaMemsetAsync(sums, 0, n * sizeof(float), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = min(kMaxThreads, (C + 31) / 32 * 32);
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
+  int* pl = static_cast<int*>(plan);
   if (R > 0) {
-    if (is_bf16)
-      roi_align_backward_kernel<__nv_bfloat16><<<R, threads, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(grad_out), static_cast<const float*>(rois), sums, B,
-          H, W, C, spatial_scale, pooled, sampling);
-    else
-      roi_align_backward_kernel<float><<<R, threads, 0, st>>>(
-          static_cast<const float*>(grad_out), static_cast<const float*>(rois), sums, B, H, W,
-          C, spatial_scale, pooled, sampling);
-    err = cudaGetLastError();
+    roi_backward_plan_kernel<<<R, 32, 0, st>>>(static_cast<const float*>(rois), pl, B, H, W,
+                                               spatial_scale, pooled, sampling);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (is_bf16 && n > 0) {
-    const size_t want = (n + 255) / 256;
-    const int blocks = static_cast<int>(want < 2112 ? want : 2112);  // 16 per SM
-    cast_to_bf16_kernel<<<blocks, 256, 0, st>>>(sums, static_cast<__nv_bfloat16*>(grad_feat), n);
-  }
+  if (is_bf16)
+    launch_backward<__nv_bfloat16>(grad_out, pl, grad_feat, B, H, W, C, R, pooled, sampling, st);
+  else
+    launch_backward<float>(grad_out, pl, grad_feat, B, H, W, C, R, pooled, sampling, st);
   return static_cast<int>(cudaGetLastError());
 }

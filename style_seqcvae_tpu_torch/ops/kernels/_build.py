@@ -162,10 +162,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (feat, rois, out, B, H, W, C, R, spatial_scale, pooled, sampling, is_bf16, stream)
     lib.ssc_roi_align.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i, p]
     lib.ssc_roi_align.restype = i
-    # (grad_out, rois, grad_feat, acc, B, H, W, C, R, spatial_scale, pooled, sampling,
+    # (grad_out, rois, grad_feat, plan, B, H, W, C, R, spatial_scale, pooled, sampling,
     #  is_bf16, stream)
     lib.ssc_roi_align_backward.argtypes = [p, p, p, p, i, i, i, i, i, f, i, i, i, p]
     lib.ssc_roi_align_backward.restype = i
+    # (pooled, sampling): int32 words of one RoI's plan
+    lib.ssc_roi_align_backward_plan_words.argtypes = [i, i]
+    lib.ssc_roi_align_backward_plan_words.restype = i
     # (boxes, mask, G, N, threshold, stream)
     lib.ssc_nms_bitmask.argtypes = [p, p, i, i, f, p]
     lib.ssc_nms_bitmask.restype = i

@@ -4,16 +4,27 @@ Counterpart of ``style_seqcvae_tpu/ops/pallas/roi_align.py::roi_align_pallas``.
 On a CUDA tensor :func:`roi_align` launches the hand-written kernel in
 ``csrc/roi_align.cu`` inside a ``torch.autograd.Function`` whose backward is
 the hand-written ``roi_align_backward_kernel`` of the same file
-(:func:`roi_align_backward`: f32 atomics with the forward's taps and
-weights); it gives the rois no gradient. On a CPU tensor it runs
-:func:`roi_align_plain` (``ops/roi_align.py::roi_align``), which autograd
-differentiates.
+(:func:`roi_align_backward`); it gives the rois no gradient. On a CPU tensor
+it runs :func:`roi_align_plain` (``ops/roi_align.py::roi_align``), which
+autograd differentiates.
 
 No TPU kernel lies behind the backward: the JAX package trains through
 autodiff of its XLA gather (``style_seqcvae_tpu/ops/roi_align.py:51``,
 reached from ``models/detector/faster_rcnn.py:143``), whose transpose is a
 scatter-add. :func:`roi_align_backward_plain` is that vector-Jacobian
-product of the plain forward.
+product of the plain forward. The kernel is a gather instead: a plan pass
+writes each RoI's batch index, tap tables (the forward's) and span into a
+small int32 buffer, then a block per (image, 4 x 2 tile of map pixels,
+channel slab) keeps the RoIs that meet its tile and sums each pixel's
+gradient in f32, in a fixed order (RoIs, row bins, column bins), in
+registers. Every pixel is written once in grad_out's dtype: no atomics, no
+zeroing pass, no f32 buffer and no cast for bf16, and two launches give
+the same bits. Its bound at the training step's (4, 40, 64, 1024) with 512
+RoIs is 0.0432 ms in f32 and 0.0216 ms in bf16 (grad_out read once, the
+gradient written once, at 3.35 TB/s); it takes 0.115 and 0.098 ms there on
+an NVIDIA H100 80GB HBM3 at 700.00 W (``scripts/time_detector.py``, a CUDA
+graph of 10 launches), against 0.400 and 0.425 ms for the atomic design it
+replaced.
 """
 
 from __future__ import annotations
@@ -102,17 +113,17 @@ def roi_align_backward(grad_out: torch.Tensor, rois: torch.Tensor,
     record_inputs("roi_align_backward", grad_out=grad_out, rois=rois,
                   features_shape=tuple(features_shape), spatial_scale=spatial_scale,
                   pooled=pooled_height, sampling_ratio=sampling_ratio)
-    is_bf16 = grad_out.dtype == torch.bfloat16
-    grad = torch.empty(features_shape, dtype=grad_out.dtype, device=grad_out.device)
-    acc = (torch.empty(features_shape, dtype=torch.float32, device=grad_out.device)
-           if is_bf16 else None)
     lib = _build.library()
+    grad = torch.empty(features_shape, dtype=grad_out.dtype, device=grad_out.device)
+    # each RoI's batch index, tap tables and span, from the kernel's plan pass
+    plan = torch.empty(R * lib.ssc_roi_align_backward_plan_words(P, sampling_ratio),
+                       dtype=torch.int32, device=grad_out.device)
     with torch.cuda.device(grad_out.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ssc_roi_align_backward(
-            grad_out.data_ptr(), rois.data_ptr(), grad.data_ptr(),
-            0 if acc is None else acc.data_ptr(), B, H, W, C, R, float(spatial_scale), P,
-            sampling_ratio, int(is_bf16), stream)
+            grad_out.data_ptr(), rois.data_ptr(), grad.data_ptr(), plan.data_ptr(), B, H, W, C,
+            R, float(spatial_scale), P, sampling_ratio,
+            int(grad_out.dtype == torch.bfloat16), stream)
     _build.check(lib, rc, "roi_align_backward")
     backward_launches += 1
     return grad

@@ -971,11 +971,11 @@ def test_serve_gpu_matches_cpu_from_shared_detections(dev):
     torch.testing.assert_close(lp_g.cpu(), lp_c, rtol=1e-5, atol=0)
 
 
-# The RoIAlign backward kernel adds each bin's share with f32 atomics, in an
-# order that changes from run to run, and merges samples that share a
-# pixel before weighting: a few ulps of the largest gradient apart from
-# autograd of the plain version in f32. In bf16 both round their f32 sums
-# once, so neighbours one bf16 ulp (2^-8 of the largest) apart.
+# The RoIAlign backward kernel gathers each pixel's gradient in f32 in a
+# fixed order (RoIs, then row bins, then column bins) and merges samples that
+# share a pixel before weighting: a few ulps of the largest gradient apart
+# from autograd of the plain version in f32. In bf16 both round their f32
+# sums once, so neighbours one bf16 ulp (2^-8 of the largest) apart.
 ROI_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
@@ -992,21 +992,74 @@ def _train_rois(gen, dev, B, H, W, per_image):
     return rois.contiguous()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,W,C,per_image", [(4, 40, 64, 1024, 128), (2, 9, 11, 13, 20)])
-def test_roi_align_backward_kernel(dev, dtype, B, H, W, C, per_image):
-    gen = torch.Generator(device=dev).manual_seed(C + B)
+# the edge RoIs (tests/test_torch_roi_backward.py's) on a 9 x 11 map at 1/16
+_EDGE_ROIS = [[1, 200, 200, 260, 260],        # past the map: every sample empty
+              [1, 0, 0, 16 * 11 - 1, 16 * 9 - 1],  # the whole map
+              [0, 0, 0, 0, 0],                # a padding row
+              [0, 40, 50, 43, 52],            # sub-pixel on the map
+              [1, 170, 130, 175.5, 143.9],    # sub-pixel at the far corner
+              [0, -20, -9, 6, 4]]             # starts left of and above the map
+
+ROI_BWD_CASES = ["train", "c13", "c512", "edges", "padding_stack", "batch_out_of_range",
+                 "empty_image", "no_rois", "unaligned", "shuffled"]
+
+
+def _backward_case(case, gen, dev, dtype):
+    """(grad_out, rois, features shape, rois for the plain version) of a named
+    case of the backward kernel's tests."""
+    shape, per_image = {"train": ((4, 40, 64, 1024), 128), "c512": ((2, 38, 58, 512), 128),
+                        "padding_stack": ((4, 40, 64, 64), 128),
+                        "empty_image": ((3, 20, 24, 96), 30)}.get(case, ((2, 9, 11, 13), 20))
+    B, H, W, C = shape
     rois = _train_rois(gen, dev, B, H, W, per_image)
+    if case == "edges":
+        rois[:len(_EDGE_ROIS)] = torch.tensor(_EDGE_ROIS, device=dev)
+    elif case == "padding_stack":
+        # half of each image's rows all-zero padding: 256 RoIs on pixels (0..1, 0..1)
+        rois.view(B, per_image, 5)[:, per_image // 2:, 1:] = 0.0
+    elif case == "empty_image":
+        rois[:, 0] = torch.where(rois[:, 0] == 1, 2.0, rois[:, 0])   # nothing on image 1
+    elif case == "no_rois":
+        rois = rois[:0]
+    elif case == "shuffled":
+        rois = rois[torch.randperm(rois.shape[0], generator=gen, device=dev)].contiguous()
+    plain_rois = rois
+    if case == "batch_out_of_range":
+        rois[0, 0], rois[1, 0], rois[2, 0] = -3.0, float(B), B + 5.0
+        # the kernels clamp the batch index into [0, B); the plain version
+        # indexes with it as given
+        plain_rois = rois.clone()
+        plain_rois[:, 0] = plain_rois[:, 0].clamp(0, B - 1)
     R = rois.shape[0]
     grad_out = torch.randn(R, 7, 7, C, generator=gen, device=dev).to(dtype)
+    if case == "unaligned":
+        # a view one element into its storage: off the 16-byte vectors
+        flat = torch.randn(R * 49 * C + 1, generator=gen, device=dev).to(dtype)
+        grad_out = flat[1:].view(R, 7, 7, C)
+        assert grad_out.data_ptr() % 16 != 0
+    return grad_out, rois, shape, plain_rois
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ROI_BWD_CASES)
+def test_roi_align_backward_kernel(dev, dtype, case):
+    gen = torch.Generator(device=dev).manual_seed(ROI_BWD_CASES.index(case))
+    grad_out, rois, shape, plain_rois = _backward_case(case, gen, dev, dtype)
+    B, H, W, C = shape
+    R = rois.shape[0]
     kw = dict(spatial_scale=1 / 16.0, pooled_height=7, pooled_width=7, sampling_ratio=2)
     before = roi_align.backward_launches
-    got = roi_align.roi_align_backward(grad_out, rois, (B, H, W, C), **kw)
-    want = roi_align.roi_align_backward_plain(grad_out, rois, (B, H, W, C), dtype, **kw)
+    got = roi_align.roi_align_backward(grad_out, rois, shape, **kw)
     torch.cuda.synchronize()
     assert roi_align.backward_launches == before + 1
-    assert got.dtype == dtype and got.shape == (B, H, W, C)
+    assert got.dtype == dtype and got.shape == shape
+    if case == "no_rois":       # every pixel written, as zeros
+        assert torch.equal(got, torch.zeros_like(got))
+        return
+    want = roi_align.roi_align_backward_plain(grad_out, plain_rois, shape, dtype, **kw)
+    if case == "empty_image":
+        assert torch.equal(got[1], torch.zeros_like(got[1]))
     scale = want.float().abs().max().item()
     assert scale > 0
     assert (got.float() - want.float()).abs().max().item() <= ROI_BWD_TOL[dtype] * scale
@@ -1019,6 +1072,22 @@ def test_roi_align_backward_kernel(dev, dtype, B, H, W, C, per_image):
     assert roi_align.launches == c_before + 1 and roi_align.backward_launches == before + 2
     assert (feats.grad.float() - want.float()).abs().max().item() <= \
         ROI_BWD_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["train", "padding_stack"])
+def test_roi_align_backward_deterministic(dev, dtype, case):
+    """Two launches on the same inputs are equal to the bit, also where
+    hundreds of RoIs add into the same pixels."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grad_out, rois, shape, _ = _backward_case(case, gen, dev, dtype)
+    kw = dict(spatial_scale=1 / 16.0, pooled_height=7, pooled_width=7, sampling_ratio=2)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    first = roi_align.roi_align_backward(grad_out, rois, shape, **kw).view(bits)
+    for _ in range(3):
+        again = roi_align.roi_align_backward(grad_out, rois, shape, **kw).view(bits)
+        assert torch.equal(first, again)
 
 
 @pytest.mark.cuda
