@@ -168,8 +168,11 @@ one JSON line per phase as it goes:
    and D (one each);
 27. ``train_detector_cli``: the train CLI on 8 of the JPEG fixtures
    (ResNet-101, 2 images a step, one epoch), the extract CLI from its
-   checkpoint with ``--detections-output``, then ``eval_detections``:
-   step ms, mAP, AP50 (near zero after 4 steps: nothing is claimed);
+   checkpoint with ``--detections-output``, then ``eval_detections``
+   with ``--vis-dir`` (the JPEGs decoded by nvjpeg, every box drawn):
+   step ms, mAP, AP50 (near zero after 4 steps: nothing is claimed), one
+   PNG per image with detections, each equal to ``vis_image_detections``
+   of that image's nvjpeg pixels, and decode, draw and encode ms an image;
 28. ``detector_variants``: VGG16 (no attribute head) with ``align``,
    ``pool`` and ``crop``: one inference forward on 2 images at config 5's
    608 x 928 and 2 training steps: ms and peak memory;
@@ -348,6 +351,7 @@ from style_seqcvae_tpu_torch.utils.features_io import (
     FeaturesWriter,
     pack_obj_atts,
 )
+from style_seqcvae_tpu_torch.utils.visualize import vis_image_detections
 from style_seqcvae_tpu_torch.weights import (
     named_leaves,
     save_params_npz,
@@ -2977,7 +2981,9 @@ def phase_train_detector_cli(dev: torch.device) -> dict:
     """The train CLI (``python -m style_seqcvae_tpu_torch.scripts.train_detector``)
     on 8 JPEG fixtures (ResNet-101, 2 images a step, one epoch), then the
     extract CLI from its checkpoint with --detections-output, then
-    eval_detections. Returns the launches."""
+    eval_detections with --vis-dir (nvjpeg decodes, every box drawn), each
+    PNG held to the port's drawing of that image's nvjpeg pixels. Returns
+    the launches."""
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         inst_all, image_root, attribs = write_extract_world(root / "world")
@@ -3016,9 +3022,12 @@ def phase_train_detector_cli(dev: torch.device) -> dict:
                 "--batch-size", str(DT_CLI_IMAGES), "--depth", str(DET_DEPTH),
                 "--thresh", "0.0"])
             result = {}
-            erc = eval_detections_cli.main(["--detections", str(dets), "--instances-json",
-                                             str(inst)], stats=result)
+            vis = root / "vis"
+            erc = eval_detections_cli.main([
+                "--detections", str(dets), "--instances-json", str(inst), "--vis-dir", str(vis),
+                "--image-root", image_root, "--vis-thresh", "0.0"], stats=result)
         extract_counts = detector_counts()
+        drawn = check_drawn_detections(dev, json.loads(dets.read_text()), data, image_root, vis)
         emit({"phase": "train_detector_cli", "rc": rc, "images": DT_CLI_IMAGES,
               "ims_per_batch": DT_CLI_IMS, "steps": stats["steps"], "wall_s": wall,
               "step_ms": stats["step_ms"], "data_ms": stats["data_ms"],
@@ -3029,7 +3038,10 @@ def phase_train_detector_cli(dev: torch.device) -> dict:
               "extract_launches": extract_counts,
               "detections": len(json.loads(dets.read_text())),
               "mAP": result.get("mAP"), "AP50": result.get("AP50"),
-              "AP75": result.get("AP75"),
+              "AP75": result.get("AP75"), "vis_written": result.get("vis_written"),
+              "vis_missing": result.get("vis_missing"), **drawn,
+              **{f"vis_{k[:-2]}_ms_an_image": 1e3 * result[k] / max(result["vis_written"], 1)
+                 for k in ("decode_s", "draw_s", "encode_s") if k in result},
               "note": "4 steps from a random init: a near-zero mAP is expected"})
         want_train = {"roi_align": steps, "roi_align_backward": steps, "nms": steps}
         if rc != 0 or xrc != 0 or erc != 0 or stats["steps"] != steps or not finite \
@@ -3040,7 +3052,51 @@ def phase_train_detector_cli(dev: torch.device) -> dict:
             fail(f"train_detector_cli launches {train_counts}, expected {want_train}")
         if extract_counts != {"roi_align": 1, "roi_align_backward": 0, "nms": 1}:
             fail(f"train_detector_cli: the extract run's launches {extract_counts}")
+        if drawn["vis_problems"]:
+            fail(f"train_detector_cli: drawing the detections: {drawn['vis_problems']}")
     return {"roi_align": steps + 1, "roi_align_backward": steps, "nms_rpn": steps + 1}
+
+
+def check_drawn_detections(dev: torch.device, dets: list, instances: dict, image_root: str,
+                           vis: Path) -> dict:
+    """Hold ``eval_detections --vis-dir``'s PNGs (decoded by the port) to
+    ``vis_image_detections`` of each image's nvjpeg pixels at threshold 0:
+    one PNG per image with detections, equal to the pixel, and at least one
+    box drawn on each. Returns counts and the problems found."""
+    ids = {c["id"]: c["name"] for c in instances["categories"]}
+    names = [ids.get(i, str(i)) for i in range(max(ids) + 1)]
+    files = {im["id"]: im["file_name"] for im in instances["images"]}
+    by_image = {}
+    for d in dets:
+        by_image.setdefault(d["image_id"], []).append(d)
+    pngs = sorted(p.name for p in vis.iterdir()) if vis.is_dir() else []
+    problems = []
+    if pngs != sorted(f"{i}.png" for i in by_image):
+        problems.append(f"PNGs {pngs} for the images {sorted(by_image)}")
+    equal = above = 0
+    for image_id, img_dets in sorted(by_image.items()):
+        path = vis / f"{image_id}.png"
+        if not path.is_file():
+            continue
+        data = (Path(image_root) / files[image_id]).read_bytes()
+        if image_decode.sniff_format(data) != "JPEG":
+            problems.append(f"{files[image_id]} is not a JPEG")
+        rgb = image_decode.decode_image_bgr(data, dev).flip(-1).to(torch.uint8).cpu().numpy()
+        boxes = np.asarray([[d["bbox"][0], d["bbox"][1], d["bbox"][0] + d["bbox"][2],
+                             d["bbox"][1] + d["bbox"][3]] for d in img_dets], np.float32)
+        scores = np.asarray([d["score"] for d in img_dets], np.float32)
+        labels = np.asarray([d["category_id"] for d in img_dets])
+        want = vis_image_detections(rgb, boxes, scores, labels, names, thresh=0.0)
+        got = image_decode.decode_image_bgr(path.read_bytes(), "cpu").flip(-1).to(
+            torch.uint8).numpy()
+        equal += int(np.array_equal(got, want))
+        above += int((scores > 0).sum())
+        if not np.array_equal(got, want):
+            problems.append(f"{path.name}: {int((got != want).any(-1).sum())} pixels differ")
+        if np.array_equal(got, rgb):
+            problems.append(f"{path.name}: nothing drawn")
+    return {"vis_images_with_detections": len(by_image), "vis_png_equal": equal,
+            "vis_detections_above_0": above, "vis_problems": problems}
 
 
 def phase_detector_variants(dev: torch.device) -> dict:

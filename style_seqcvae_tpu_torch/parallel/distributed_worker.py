@@ -58,6 +58,8 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from style_seqcvae_tpu_torch.device import resolve_device
+
 # the JAX worker's tiny captioner, and config 2's published widths
 _TINY_CAPTIONER = dict(vocab_size=64, image_feature_size=16, embedding_size=8, hidden_size=6,
                        attention_projection_size=4, z_space=4, sentiment_vae=1,
@@ -402,6 +404,8 @@ def run_detector_payload(spec: Dict[str, Any], device: Union[str, torch.device]
 
 
 PAYLOADS = {"captioner": run_captioner_payload, "detector": run_detector_payload}
+# seconds the launcher waits for the other ranks after one has failed
+FAIL_GRACE_S = 5.0
 SPECS = {"captioner": captioner_spec, "detector": detector_spec}
 
 
@@ -429,22 +433,37 @@ def run_payloads(specs: Dict[str, Dict[str, Any]], device: Union[str, torch.devi
 
 
 def launch_two_process_run(payloads: Union[Sequence[str], Dict[str, Dict[str, Any]]] = (
-        "captioner",), device: str = "cpu", backend: Optional[str] = None,
+        "captioner",), device: Optional[str] = None, backend: Optional[str] = None,
         timeout: float = 300.0, out_dir: Optional[str] = None) -> List[Dict[str, Any]]:
     """:func:`launch_ranks` with two ranks."""
     return launch_ranks(2, payloads, device, backend, timeout, out_dir)
 
 
 def launch_ranks(n: int, payloads: Union[Sequence[str], Dict[str, Dict[str, Any]]] = (
-        "captioner",), device: str = "cpu", backend: Optional[str] = None,
+        "captioner",), device: Optional[str] = None, backend: Optional[str] = None,
         timeout: float = 300.0, out_dir: Optional[str] = None) -> List[Dict[str, Any]]:
     """Start ``n`` workers as ranks 0 … n-1 of a process group on this
-    machine (``SSC_*`` environment on a free port), all on ``device`` (the
-    CPU, or one card for every rank, which needs ``backend="gloo"``), and
-    run ``payloads`` (names with their tiny specs, or name → spec). Returns
-    the results, rank 0 first. Raises when a worker fails or one outlives
-    ``timeout`` seconds (all are then killed)."""
+    machine (``SSC_*`` environment on a free port) and run ``payloads``
+    (names with their tiny specs, or name → spec). ``device``: None (the
+    card: rank r on ``cuda:r``; raises with no GPU), ``"cpu"``, or one card
+    ``cuda:i`` that every rank shares. Ranks that share a card run over
+    gloo, which is picked for them when ``backend`` is None: NCCL refuses
+    two ranks on one GPU. Returns the results, rank 0 first. Raises when a
+    worker fails or one outlives ``timeout`` seconds (all are then
+    killed)."""
     from style_seqcvae_tpu_torch.parallel.multihost import free_port
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and n > 1:
+        if dev.index is None and n > torch.cuda.device_count():
+            raise ValueError(f"{n} ranks on {torch.cuda.device_count()} CUDA device(s): pass "
+                             "device='cuda:0' to share one card over gloo")
+        if dev.index is not None:
+            if backend not in (None, "gloo"):
+                raise ValueError(f"{n} ranks share {dev}, which needs backend='gloo': NCCL "
+                                 "refuses two ranks on one GPU")
+            backend = "gloo"
+    device = str(dev)
 
     specs = (dict(payloads) if isinstance(payloads, dict)
              else {name: SPECS[name]() for name in payloads})
@@ -472,7 +491,13 @@ def launch_ranks(n: int, payloads: Union[Sequence[str], Dict[str, Dict[str, Any]
         deadline = time.monotonic() + timeout
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs):
-                break                        # a failed rank: the others would wait for it
+                # a failed rank: the others would wait for it. Ranks failing
+                # on their own get FAIL_GRACE_S to exit first, so the lowest
+                # of them is the one reported, whichever exited first
+                grace = time.monotonic() + FAIL_GRACE_S
+                while any(p.poll() is None for p in procs) and time.monotonic() < grace:
+                    time.sleep(0.05)
+                break
             if time.monotonic() > deadline:
                 raise subprocess.TimeoutExpired(cmd, timeout)
             time.sleep(0.05)
@@ -509,7 +534,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--payloads", default="captioner")
     ap.add_argument("--spec-dir", default="",
                     help="directory of <payload>.json specs (default: the tiny specs)")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default=None,
+                    help="cpu, cuda (this rank's card, cuda:LOCAL_RANK) or cuda:i "
+                         "(default: the card; raises with no GPU)")
     ap.add_argument("--backend", default=None,
                     help="the process group's backend (default nccl on CUDA, gloo on CPU)")
     args = ap.parse_args(argv)
@@ -518,12 +545,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     from style_seqcvae_tpu_torch.parallel.multihost import maybe_initialize_distributed
 
-    if torch.device(args.device).type == "cpu":
+    device = resolve_device(args.device)
+    if device.type == "cpu":
         torch.set_num_threads(1)
     else:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    maybe_initialize_distributed(args.device, backend=args.backend)
+    maybe_initialize_distributed(device, backend=args.backend)
     specs = {}
     for name in [p for p in args.payloads.split(",") if p]:
         path = os.path.join(args.spec_dir, f"{name}.json") if args.spec_dir else ""
@@ -533,7 +561,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         else:
             specs[name] = SPECS[name]()
     try:
-        result = run_payloads(specs, args.device)
+        result = run_payloads(specs, device)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

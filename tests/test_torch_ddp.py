@@ -85,7 +85,7 @@ def test_captioner_two_ranks_equal_one_process_and_jax(tmp_path):
                 batch_npz=str(tmp_path / "batch.npz"), eps=str(tmp_path / "eps.npz"),
                 save=str(tmp_path / "ranks.npz"))
 
-    ranks = W.launch_two_process_run({"captioner": spec}, timeout=TIMEOUT,
+    ranks = W.launch_two_process_run({"captioner": spec}, device="cpu", timeout=TIMEOUT,
                                      out_dir=str(tmp_path / "w"))
     one = W.run_payloads({"captioner": dict(spec, save=str(tmp_path / "one.npz"))}, "cpu")
 
@@ -144,7 +144,7 @@ def test_detector_two_ranks_equal_jax_with_unequal_counts(tmp_path):
                 batch_npz=str(tmp_path / "batch.npz"), draws=str(tmp_path / "draws.npz"),
                 save=str(tmp_path / "ranks.npz"))
 
-    ranks = W.launch_two_process_run({"detector": spec}, timeout=TIMEOUT,
+    ranks = W.launch_two_process_run({"detector": spec}, device="cpu", timeout=TIMEOUT,
                                      out_dir=str(tmp_path / "w"))
 
     tx = make_detector_optimizer(jp, **spec["optimizer"])
@@ -218,7 +218,7 @@ def test_checkpoints_restore_across_world_sizes(tmp_path):
     ranks = W.launch_two_process_run(
         {"captioner": dict(base, steps=1, ckpt_restore="single_step1",
                            ckpt_save="multi_step2")},
-        timeout=TIMEOUT, out_dir=str(tmp_path / "w"))
+        device="cpu", timeout=TIMEOUT, out_dir=str(tmp_path / "w"))
     for r in ranks:
         assert r["process_count"] == 2
         r = r["captioner"]
@@ -236,5 +236,34 @@ def test_a_failing_rank_fails_the_launch(tmp_path):
     spec = W.captioner_spec()
     spec["params"] = str(tmp_path / "missing.npz")
     with pytest.raises(RuntimeError, match="worker 0 failed"):
-        W.launch_two_process_run({"captioner": spec}, timeout=TIMEOUT,
+        W.launch_two_process_run({"captioner": spec}, device="cpu", timeout=TIMEOUT,
                                  out_dir=str(tmp_path / "w"))
+
+
+def test_launchers_default_to_the_card(tmp_path, monkeypatch):
+    """With no device given, the launchers and the worker CLI take the card;
+    with no GPU they raise before any rank starts and never fall back to the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        W.launch_two_process_run({"captioner": W.captioner_spec()}, timeout=TIMEOUT,
+                                 out_dir=str(tmp_path / "w"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        W.launch_ranks(4, ("captioner",), timeout=TIMEOUT, out_dir=str(tmp_path / "w"))
+    assert not (tmp_path / "w").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        W.main(["--out", str(tmp_path / "r.json")])
+    assert not (tmp_path / "r.json").exists()
+
+
+def test_ranks_sharing_a_card_need_gloo(tmp_path, monkeypatch):
+    """Two ranks on one card: an explicit ``cuda:i`` is shared over gloo
+    (NCCL refuses two ranks on one GPU), and more ranks than cards without
+    one is refused by name; both before any rank starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="2 ranks on 1 CUDA device.*device='cuda:0'"):
+        W.launch_two_process_run(out_dir=str(tmp_path / "w"))
+    with pytest.raises(ValueError, match="share cuda:0, which needs backend='gloo'"):
+        W.launch_two_process_run(device="cuda:0", backend="nccl", out_dir=str(tmp_path / "w"))
+    assert not (tmp_path / "w").exists()

@@ -65,7 +65,8 @@ def test_port_imports_no_jax():
                  "parallel.tensor_parallel", "preprocessing", "data.image_encode",
                  "scripts.preprocess", "scripts.build_vocabulary",
                  "scripts.make_synthetic_corpus", "scripts.make_world",
-                 "scripts.eval_baselines", "scripts.style_report", "scripts.three_stage"):
+                 "scripts.eval_baselines", "scripts.style_report", "scripts.three_stage",
+                 "utils.glyphs", "utils.visualize"):
         assert "style_seqcvae_tpu_torch." + name in modules
     code = "\n".join([
         "import sys",

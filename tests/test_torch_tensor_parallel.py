@@ -198,7 +198,7 @@ def tp_run(tmp_path_factory):
     specs["ckpt"] = dict(base, steps=1, num_model=2, fsdp=True, ckpt_restore="one_step1",
                          ckpt_save="mesh_step2")
 
-    ranks = W.launch_ranks(4, specs, timeout=TIMEOUT, out_dir=str(tmp / "w"))
+    ranks = W.launch_ranks(4, specs, device="cpu", timeout=TIMEOUT, out_dir=str(tmp / "w"))
     restored = W.run_payloads({"c": dict(base, steps=0, ckpt_restore="mesh_step2")},
                               "cpu")["c"]
     return dict(tmp=tmp, specs=specs, jax=jax_out, ones=ones, ranks=ranks,
