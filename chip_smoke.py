@@ -32,7 +32,11 @@ one JSON line per phase as it goes:
    16 x 20 z-samples x 8 FSM states x beam 5, sentiment_vae 1, bf16) through
    ``DecodeHarness.decode_cbs`` once per selection, with each kernel's launch
    count from that run, then ``decode_compare``: the share of identical best
-   captions for every pair of selections;
+   captions for every pair of selections; then the decode that the
+   inference CLI runs by default, f32 parameters and features through
+   "prehead" (kernel A's f32 route, 19 launches), timed, against the same
+   f32 decode through "raw" (no kernel): at least 99% of the best captions
+   identical;
 5. ``beam``: ``DecodeHarness.decode_beam`` at config 3's widths (batch 16 x
    20 z x beam 5, bf16); ``greedy``: BASELINE.json config 1 as bench.py
    builds it (``greedy_decode`` on the log-prob step, batch 100, 20 steps,
@@ -223,13 +227,17 @@ one JSON line per phase as it goes:
    every stage exits 0, each of A, C, C's backward and D launched and was
    checked, and every check agrees;
 
-then the ``{"kernels": [...]}`` summary, the card's name and power limit from
+then the ``{"kernels": [...]}`` summary (kernel A twice: its bf16 route,
+with the launches of both routes, and its f32 route, ``vocab_topk_lse_f32``,
+with those of the f32 decode), the card's name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Exits non-zero at once without a GPU.
 ``python3 chip_smoke.py --split-readings SEED ...`` runs only the build and
 ``decode_split`` at each seed (the readings its bounds are set from);
 ``python3 chip_smoke.py --tp-readings`` runs only the ``tp`` part;
-``python3 chip_smoke.py --pipeline`` only the build and ``pipeline``.
+``python3 chip_smoke.py --pipeline`` only the build and ``pipeline``;
+``python3 chip_smoke.py --decode-f32`` only the build and the f32 decode
+rows.
 ``python3 chip_smoke.py --pipeline-readings`` runs the build and the
 workflow alone at make_world's defaults (800 / 100 / 100 images) and
 three_stage.sh's detector knobs (16 epochs, ResNet-50), the captioner cut
@@ -382,6 +390,11 @@ TOL = {"vocab_topk_lse": {"vals": 1e-3, "lse": 1e-3, "idx_agree": 0.999},
 # so they must be identical on these seeded inputs.
 AGREE_MIN = 0.9
 AGREE_MIN_NO_KERNEL = 1.0
+# config 3's f32 decode: prehead takes its logsumexp from kernel A and its
+# exception logits from a small product of their own, raw both from the
+# materialised logits, so the scores differ in the last bits and a near tie
+# may flip; at least 99% of the best captions must be identical
+F32_DECODE_AGREE_MIN = 0.99
 AGREE_LP_TOL = 1e-3
 # config 1 (bench.py:243-323): greedy, batch 100, 10 decodes chained
 GREEDY_BATCH, GREEDY_CHAIN = 100, 10
@@ -475,9 +488,11 @@ JAX_PIPELINE_GATES = {"AP50": 0.5, "mAP": 0.25, "pos_margin": 0.30, "neg_margin"
 NVJPEG_ROUNDTRIP_BOUND = {"mean": 6.0, "max": 230.0}
 
 SOURCES = {
-    # the summary row is the bf16 path's; f32 runs csrc/vocab_topk_lse.cu
+    # kernel A's two routes: bf16 on the tensor cores, f32 on the CUDA cores
     "vocab_topk_lse": ("style_seqcvae_tpu_torch/csrc/vocab_topk_lse_sm90.cu",
                        "style_seqcvae_tpu/ops/pallas/vocab_topk_lse.py:113"),
+    "vocab_topk_lse_f32": ("style_seqcvae_tpu_torch/csrc/vocab_topk_lse.cu",
+                           "style_seqcvae_tpu/ops/pallas/vocab_topk_lse.py:113"),
     "topk_lse": ("style_seqcvae_tpu_torch/csrc/topk_lse.cu",
                  "style_seqcvae_tpu/ops/pallas/topk_lse.py:76"),
     "roi_align": ("style_seqcvae_tpu_torch/csrc/roi_align.cu",
@@ -639,9 +654,7 @@ def kernel_row(name: str, c: dict, dtype: torch.dtype, shape: dict) -> dict:
 def vocab_case(x: torch.Tensor, emb: torch.Tensor, k: int) -> dict:
     (R, E), V = x.shape, emb.shape[0]
     size = x.element_size()
-    extra = {}
-    if x.dtype == torch.bfloat16:
-        extra["plan"] = vocab_topk_lse.bf16_plan(R, V, E + (-E % 8), k)
+    extra = {"plan": vocab_topk_lse.plan(R, V, E + (-E % 8), k, x.dtype)}
     return dict(kernel=lambda: vocab_topk_lse.matmul_top_k_with_lse(x, emb, k),
                 plain=lambda: vocab_topk_lse.matmul_top_k_with_lse_plain(x, emb, k),
                 bytes=(R * E + V * E) * size + R * k * 8 + R * 4,
@@ -660,7 +673,7 @@ def topk_case(logits: torch.Tensor, k: int) -> dict:
 def phase_kernels(k: int, dev: torch.device) -> dict:
     """Each kernel against its plain version at the flagship shapes, and
     kernel A's bf16 path at a ragged shape; returns the bf16 flagship rows
-    for the summary line."""
+    and kernel A's f32 row for the summary line."""
     R = BATCH * N_Z * STATES * BEAM
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
@@ -674,6 +687,8 @@ def phase_kernels(k: int, dev: torch.device) -> dict:
                                               E if name == "vocab_topk_lse" else None})
             if dtype == torch.bfloat16:
                 out[name] = row
+            elif name == "vocab_topk_lse":
+                out["vocab_topk_lse_f32"] = row
         # yardsticks, for scale only: cuBLAS's head matmul alone and torch.topk alone
         emit({"phase": "yardstick", "dtype": str(dtype).split(".")[-1],
               "torch_matmul_head_ms": time_ms(lambda: torch.matmul(x, emb.T), 5),
@@ -896,6 +911,52 @@ def phase_decode(dev: torch.device):
           "identical": {f"{a}_vs_{b}": identical(a, b)
                         for i, a in enumerate(SELECTIONS) for b in SELECTIONS[i + 1:]}})
     return launches, (harness, sentiment, tables)
+
+
+def phase_decode_f32(dev: torch.device) -> int:
+    """The decode that the inference CLI runs by default (no --bf16): config
+    3's grid with f32 parameters and features, CBS with the "prehead"
+    selection (kernel A's f32 route, 19 launches) on the decode phase's
+    seeded noise, timed first and warm; then the same decode through "raw"
+    (no kernel), whose best captions it must match for nearly every (z,
+    image). Returns kernel A's launches of the timed prehead run."""
+    cfg = decode_cfg()
+    params = init_captioner(cfg, seed=0, device=dev, dtype=torch.float32)
+    feats, sentiment, tables = decode_setup(cfg, BATCH, N_Z, BOXES, seed=0)
+    harness = DecodeHarness(params, cfg, device=dev)
+    best_by_sel, row_by_sel, launches = {}, {}, 0
+    for selection in ("prehead", "raw"):
+        reset_selection_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        best, best_lp = harness.decode_cbs(feats, sentiment, None, tables, N_CONSTRAINTS,
+                                           torch.Generator(device=dev).manual_seed(7), N_Z,
+                                           selection=selection)
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        counts = selection_counts()
+        t0 = time.time()
+        harness.decode_cbs(feats, sentiment, None, tables, N_CONSTRAINTS,
+                           torch.Generator(device=dev).manual_seed(7), N_Z, selection=selection)
+        torch.cuda.synchronize()
+        warm_s = time.time() - t0
+        expected = {"vocab_topk_lse": STEPS - 1 if selection == "prehead" else 0, "topk_lse": 0}
+        row = {"phase": "decode", "selection": selection, "dtype": "float32",
+               "best_lp_min": best_lp.min().item(), "first_run_s": first_s,
+               "warm_run_s": warm_s, "captions_per_s": BATCH * N_Z / warm_s}
+        check_decode_output(f"decode ({selection}, f32)", best, best_lp, [N_Z, BATCH, STEPS],
+                            counts, expected, row)
+        if selection == "prehead":
+            launches = counts["vocab_topk_lse"]
+        best_by_sel[selection] = best
+    identical = (best_by_sel["prehead"] == best_by_sel["raw"]).all(dim=-1).float().mean().item()
+    emit({"phase": "decode_compare", "dtype": "float32", "prehead_vs_raw_identical": identical,
+          "need": F32_DECODE_AGREE_MIN})
+    if identical < F32_DECODE_AGREE_MIN:
+        fail(f"the f32 prehead decode matches raw on {identical:.4f} of its best captions")
+    del harness, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_beam(dev: torch.device, decode_state) -> None:
@@ -3879,6 +3940,11 @@ def main() -> int:
         phase_pipeline(dev)
         print_card()
         return 0
+    if sys.argv[1:] == ["--decode-f32"]:
+        phase_build()
+        phase_decode_f32(dev)
+        print_card()
+        return 0
     if sys.argv[1:2] == ["--pipeline-readings"] and len(sys.argv) <= 3:
         phase_build()
         return pipeline_readings(dev, sys.argv[2] if len(sys.argv) == 3 else None)
@@ -3890,6 +3956,11 @@ def main() -> int:
     rows = phase_kernels(k, dev)
     phase_agree(dev)
     launches, decode_state = phase_decode(dev)
+    # the decode that the inference CLI runs by default: kernel A's f32
+    # route, whose summary entry counts this run's launches; A's own entry
+    # counts the wrapper's launches of both routes
+    launches["vocab_topk_lse_f32"] = phase_decode_f32(dev)
+    launches["vocab_topk_lse"] += launches["vocab_topk_lse_f32"]
     phase_beam(dev, decode_state)
     phase_greedy(dev)
     det_rows = phase_detector_kernels(dev)

@@ -15,18 +15,17 @@
 // 0.163 ms at the 989 TFLOP/s bf16 dense tensor-core peak; it must move
 // only 15 MB of x and emb (5 us at 3.35 TB/s).
 //
-// Design. The work is a grid of units, one per (128-row tile of x,
-// 128-column tile of the vocabulary). A persistent block per SM takes a
-// contiguous run of units in row-tile-major order (the runs of all blocks
-// differ by at most one unit), so every SM has work at any R; a run that
-// crosses a row tile ends one segment and starts the next. Per block:
-//   * one producer warp issues TMA loads (cp.async.bulk.tensor, 128-byte
-//     swizzle, mbarrier completion) of 64-wide K chunks of the x tile and
-//     the emb tile into a ring of stages; TMA's zero fill covers rows past
-//     R or V and the K tail past E (E = 600 is 9 chunks and 24). Keeping
-//     x's tile resident for a whole segment halves the L2 traffic (2.7 ->
-//     1.33 GB at the flagship shape) but leaves room for only 3 stages
-//     instead of 6, and measured no faster with the top-k in;
+// Design. The work split, the TMA ring and the merge of partial results
+// are shared with the f32 route (vocab_topk_lse_plan.cuh): persistent
+// blocks over contiguous runs of (128-row, 128-column) units, one segment
+// per row tile a run crosses. Per block:
+//   * one producer warp issues TMA loads of 64-wide K chunks (128 bytes of
+//     bf16) of the x tile and the emb tile into a ring of stages; TMA's
+//     zero fill covers rows past R or V and the K tail past E (E = 600 is
+//     9 chunks and 24). Keeping x's tile resident for a whole segment
+//     halves the L2 traffic (2.7 -> 1.33 GB at the flagship shape) but
+//     leaves room for only 3 stages instead of 6, and measured no faster
+//     with the top-k in;
 //   * two consumer warpgroups, 64 rows each, run wgmma.mma_async
 //     m64n128k16 (bf16 x bf16 -> f32 in registers) over the chunks, one
 //     wgmma group in flight while the previous stage is released;
@@ -45,80 +44,35 @@
 //     keeps the worst of them in registers; the owner of the replaced
 //     entry rescans its own, and two shuffle rounds give the row's new
 //     worst.
-// A segment's end writes its per-row list and (max, sum) to scratch that
-// the wrapper allocates; a second kernel merges the few partial lists of
-// each row (k rounds of a warp-wide argmax, same tie order) and their
-// (max, sum) pairs into vals, idx and lse.
+// A segment's end writes its per-row list and (max, sum) to scratch; the
+// shared merge kernel turns them into vals, idx and lse.
 //
 // Measured on an H100 SXM (700 W) at the flagship shape: 0.747 ms, 4.6x
 // the bound. The L2 loads set its floor (0.60 ms with the top-k's second
 // pass skipped); the products add little. PERF.md keeps the numbers.
-//
-// The TMA descriptors come from the driver's cuTensorMapEncodeTiled,
-// reached through the runtime's cudaGetDriverEntryPointByVersion so that
-// the library links with plain `nvcc -shared` and no -lcuda. They are
-// passed to the kernel as __grid_constant__ parameters.
-#include <cuda.h>
 
-#include <cstdint>
-
-#include "ssc_common.cuh"
+#include "vocab_topk_lse_plan.cuh"
 
 namespace {
 
-constexpr int kRowsTile = 128;                    // rows of x per unit (2 x 64)
-constexpr int kColsTile = 128;                    // vocabulary columns per unit
-constexpr int kChunk = 64;                        // K per stage: 128 bytes of bf16
-constexpr int kTileBytes = kRowsTile * kChunk * 2;  // 16 KB, each of x and emb
-constexpr int kStageBytes = 2 * kTileBytes;
-constexpr int kMaxStages = 8;
+constexpr int kChunk = kChunkBytes / 2;          // K per stage: 64 bf16
 constexpr int kConsumers = 256;                   // two warpgroups
 constexpr int kThreads = kConsumers + 32;         // and one producer warp
-constexpr int kMergeWarps = 8;
 constexpr int kSeed = 3;  // per-thread largest values that seed a new list's threshold
 using ssc::exp2_approx;
 using ssc::kLog2e;
 
-// ---- PTX wrappers ----------------------------------------------------------
+// shared memory of a tile row's top-k: its list of k
+__host__ __device__ constexpr size_t row_bytes(int k) { return static_cast<size_t>(k) * 8; }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// Entry (v, i) at position p is worse than (w, j) at position r: it comes
+// after it in selection order, or equals it and sits at a larger position
+// (so that every thread of a quad settles on the same worst entry).
+__device__ __forceinline__ bool worse(float v, int i, int p, float w, int j, int r) {
+  return ssc::before(w, j, v, i) || (v == w && i == j && p > r);
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
+// ---- wgmma ------------------------------------------------------------------
 
 // K-major operand in 128-byte swizzle: 8-row groups 1024 bytes apart (SBO);
 // the leading offset is unused for this layout.
@@ -136,13 +90,6 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Entry (v, i) at position p is worse than (w, j) at position r: it comes
-// after it in selection order, or equals it and sits at a larger position
-// (so that every thread of a quad settles on the same worst entry).
-__device__ __forceinline__ bool worse(float v, int i, int p, float w, int j, int r) {
-  return ssc::before(w, j, v, i) || (v == w && i == j && p > r);
 }
 
 // keep the compiler from moving accumulator accesses across a wgmma fence or wait
@@ -176,18 +123,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// ---- work split --------------------------------------------------------------
-
-// Units [unit_begin(b), unit_begin(b + 1)) belong to block b.
-__host__ __device__ __forceinline__ long long unit_begin(int b, long long units, int blocks) {
-  return static_cast<long long>(b) * units / blocks;
-}
-
-struct Plan {
-  int row_tiles, col_tiles, blocks, max_segments, stages, chunks;
-  long long units;
-  size_t smem;
-};
 
 // ---- main kernel -------------------------------------------------------------
 
@@ -473,165 +408,14 @@ vocab_topk_lse_sm90_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// ---- merge kernel --------------------------------------------------------------
-
-// One warp per row: the partial lists of the blocks whose runs cover the
-// row's tile, merged by k rounds of a warp-wide argmax; (max, sum) pairs
-// merged into the logsumexp.
-__global__ void __launch_bounds__(kMergeWarps * 32)
-vocab_topk_lse_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
-                            const float* __restrict__ part_m, const float* __restrict__ part_s,
-                            float* __restrict__ vals, int* __restrict__ idx,
-                            float* __restrict__ lse, int R, int k, int col_tiles,
-                            long long units, int blocks, int max_segments) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
-  if (r >= R) return;  // warp-uniform
-  const int t = r / kRowsTile, tr = r % kRowsTile;
-  const long long u0 = static_cast<long long>(t) * col_tiles, u1 = u0 + col_tiles;
-  // the last block whose run starts at or before u0 holds u0
-  const int b0 = static_cast<int>(((u0 + 1) * blocks + units - 1) / units - 1);
-  int n_lists = 0;
-  while (b0 + n_lists < blocks && unit_begin(b0 + n_lists, units, blocks) < u1) ++n_lists;
-  auto slot = [&](int l) {
-    const int bl = b0 + l;
-    const int seg = t - static_cast<int>(unit_begin(bl, units, blocks) / col_tiles);
-    return (static_cast<size_t>(bl) * max_segments + seg) * kRowsTile + tr;
-  };
-
-  float m = -INFINITY, s = 0.f;
-  for (int l = lane; l < n_lists; l += 32) {
-    const size_t sl = slot(l);
-    const float om = part_m[sl], os = part_s[sl];
-    const float mn = fmaxf(m, om);
-    if (mn != -INFINITY) s = s * expf(m - mn) + os * expf(om - mn);
-    m = mn;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float om = __shfl_xor_sync(ssc::kFullMask, m, o);
-    const float os = __shfl_xor_sync(ssc::kFullMask, s, o);
-    const float mn = fmaxf(m, om);
-    if (mn != -INFINITY) s = s * expf(m - mn) + os * expf(om - mn);
-    m = mn;
-  }
-  if (lane == 0) lse[r] = ssc::finish_lse(m, s);
-
-  const int n = n_lists * k;
-  float cv = 0.f;
-  int ci = 0;
-  for (int j = 0; j < k; ++j) {
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    bool found = false;
-    for (int c = lane; c < n; c += 32) {
-      const size_t at = slot(c / k) * k + c % k;
-      const float v = part_v[at];
-      const int i = part_i[at];
-      if ((j == 0 || ssc::before(cv, ci, v, i)) && (!found || ssc::before(v, i, bv, bi))) {
-        bv = v;
-        bi = i;
-        found = true;
-      }
-    }
-    ssc::warp_first(bv, bi);
-    if (lane == 0) {
-      vals[static_cast<size_t>(r) * k + j] = bv;
-      idx[static_cast<size_t>(r) * k + j] = bi;
-    }
-    cv = bv;
-    ci = bi;
-  }
-}
-
-// ---- host side -----------------------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                      cudaEnableDefault, &found);
-#else
-    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                             &found);
-#endif
-    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// rows x E bf16, row-major; boxes of 128 rows x 64 columns, 128-byte swizzle,
-// zeros outside the tensor
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int E) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(E), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(E) * 2};
-  const cuuint32_t box[2] = {kChunk, kRowsTile};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-cudaError_t make_plan(int R, int V, int E, int k, Plan* p) {
-  int dev = 0, sms = 0, smem_max = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (rc == cudaSuccess)
-    rc = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (rc != cudaSuccess) return rc;
-  p->row_tiles = (R + kRowsTile - 1) / kRowsTile;
-  p->col_tiles = (V + kColsTile - 1) / kColsTile;
-  p->chunks = (E + kChunk - 1) / kChunk;
-  p->units = static_cast<long long>(p->row_tiles) * p->col_tiles;
-  p->blocks = static_cast<int>(p->units < sms ? p->units : sms);
-  p->max_segments = 1;
-  for (int b = 0; b < p->blocks; ++b) {
-    const long long lo = unit_begin(b, p->units, p->blocks);
-    const long long hi = unit_begin(b + 1, p->units, p->blocks) - 1;
-    const int segs = static_cast<int>(hi / p->col_tiles - lo / p->col_tiles + 1);
-    if (segs > p->max_segments) p->max_segments = segs;
-  }
-  const size_t fixed = 1024 + static_cast<size_t>(kRowsTile) * k * 8 + 2 * kMaxStages * 8;
-  const long long room = (static_cast<long long>(smem_max) - static_cast<long long>(fixed)) /
-                         kStageBytes;
-  if (room < 2) return cudaErrorInvalidValue;
-  p->stages = static_cast<int>(room < kMaxStages ? room : kMaxStages);
-  p->smem = fixed + static_cast<size_t>(p->stages) * kStageBytes;
-  return cudaSuccess;
-}
-
-size_t scratch_bytes(const Plan& p, int k) {
-  return static_cast<size_t>(p.blocks) * p.max_segments * kRowsTile * (2 * k + 2) * 4;
-}
-
 }  // namespace
 
-// The launch plan on the current device: out[0] blocks, out[1] segments
-// per block at most, out[2] pipeline stages, out[3] dynamic shared memory
-// bytes, out[4] scratch bytes that ssc_vocab_topk_lse_bf16 needs. Returns a
-// CUDA error code.
+// The launch plan on the current device for E % 8 == 0: out[0] blocks,
+// out[1] segments per block at most, out[2] pipeline stages, out[3]
+// dynamic shared memory bytes, out[4] scratch bytes that
+// ssc_vocab_topk_lse_bf16 needs, out[5] K chunks. Returns a CUDA error code.
 extern "C" int ssc_vocab_topk_lse_bf16_plan(int R, int V, int E, int k, long long* out) {
-  Plan p;
-  const cudaError_t rc = make_plan(R, V, E, k, &p);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  out[0] = p.blocks;
-  out[1] = p.max_segments;
-  out[2] = p.stages;
-  out[3] = static_cast<long long>(p.smem);
-  out[4] = static_cast<long long>(scratch_bytes(p, k));
-  return 0;
+  return plan_entry(R, V, E, kChunk, row_bytes(k), k, out);
 }
 
 // x (R, E), emb (V, E) bf16, E % 8 == 0, pointers 16-byte aligned ->
@@ -640,32 +424,24 @@ extern "C" int ssc_vocab_topk_lse_bf16_plan(int R, int V, int E, int k, long lon
 extern "C" int ssc_vocab_topk_lse_bf16(const void* x, const void* emb, void* vals, void* idx,
                                        void* lse, void* scratch, int R, int V, int E, int k,
                                        void* stream) {
-  if (R <= 0 || V <= 0 || E <= 0 || E % 8 != 0 || k <= 0 || k >= 128 || k > V ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(emb) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_args(x, emb, R, V, E, k)) return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  cudaError_t rc = make_plan(R, V, E, k, &p);
+  cudaError_t rc = make_plan(R, V, E, kChunk, row_bytes(k), k, &p);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   CUtensorMap map_x, map_emb;
-  if (!make_map(&map_x, x, R, E) || !make_map(&map_emb, emb, V, E))
+  if (!make_map(&map_x, x, R, E, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2) ||
+      !make_map(&map_emb, emb, V, E, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t slots = static_cast<size_t>(p.blocks) * p.max_segments * kRowsTile;
-  float* part_v = static_cast<float*>(scratch);
-  int* part_i = reinterpret_cast<int*>(part_v + slots * k);
-  float* part_m = reinterpret_cast<float*>(part_i + slots * k);
-  float* part_s = part_m + slots;
+  const Partials part = partials(scratch, p);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   rc = cudaFuncSetAttribute(vocab_topk_lse_sm90_kernel,
                             cudaFuncAttributeMaxDynamicSharedMemorySize,
                             static_cast<int>(p.smem));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   vocab_topk_lse_sm90_kernel<<<p.blocks, kThreads, p.smem, st>>>(
-      map_x, map_emb, part_v, part_i, part_m, part_s, V, k, p.chunks, p.col_tiles, p.units,
+      map_x, map_emb, part.v, part.i, part.m, part.s, V, k, p.chunks, p.col_tiles, p.units,
       p.max_segments, p.stages);
   rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  vocab_topk_lse_merge_kernel<<<(R + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, st>>>(
-      part_v, part_i, part_m, part_s, static_cast<float*>(vals), static_cast<int*>(idx),
-      static_cast<float*>(lse), R, k, p.col_tiles, p.units, p.blocks, p.max_segments);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_merge(part, p, vals, idx, lse, R, k, st));
 }

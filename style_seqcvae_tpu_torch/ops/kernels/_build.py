@@ -146,15 +146,13 @@ def build_nvjpeg() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    # (x, emb, vals, idx, lse, R, V, E, k, stream)
-    lib.ssc_vocab_topk_lse_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.ssc_vocab_topk_lse_f32.restype = i
-    # (x, emb, vals, idx, lse, scratch, R, V, E, k, stream)
-    lib.ssc_vocab_topk_lse_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-    lib.ssc_vocab_topk_lse_bf16.restype = i
-    # (R, V, E, k, out[5]): blocks, segments, stages, smem bytes, scratch bytes
-    lib.ssc_vocab_topk_lse_bf16_plan.argtypes = [i, i, i, i, p]
-    lib.ssc_vocab_topk_lse_bf16_plan.restype = i
+    for dt in ("f32", "bf16"):
+        # (x, emb, vals, idx, lse, scratch, R, V, E, k, stream)
+        getattr(lib, f"ssc_vocab_topk_lse_{dt}").argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        getattr(lib, f"ssc_vocab_topk_lse_{dt}").restype = i
+        # (R, V, E, k, out[6]): blocks, segments, stages, smem bytes, scratch bytes, chunks
+        getattr(lib, f"ssc_vocab_topk_lse_{dt}_plan").argtypes = [i, i, i, i, p]
+        getattr(lib, f"ssc_vocab_topk_lse_{dt}_plan").restype = i
     # (logits, vals, idx, lse, R, V, k, is_bf16, stream)
     lib.ssc_topk_lse.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.ssc_topk_lse.restype = i

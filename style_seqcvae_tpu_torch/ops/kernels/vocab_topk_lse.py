@@ -3,11 +3,13 @@
 Counterpart of ``style_seqcvae_tpu/ops/pallas/vocab_topk_lse.py::
 matmul_top_k_with_lse``. On CUDA tensors :func:`matmul_top_k_with_lse`
 launches a hand-written kernel chosen by dtype: bf16 goes to the tensor-core
-kernel in ``csrc/vocab_topk_lse_sm90.cu`` (wgmma fed by TMA, E zero-padded to
-a multiple of 8 for TMA's 16-byte row stride), f32 to the CUDA-core kernel in
-``csrc/vocab_topk_lse.cu`` (exact f32 products). Neither writes the (R, V)
-logits to device memory. On CPU tensors it runs
-:func:`matmul_top_k_with_lse_plain`.
+kernel in ``csrc/vocab_topk_lse_sm90.cu`` (wgmma), f32 to the CUDA-core
+kernel in ``csrc/vocab_topk_lse.cu`` (exact f32 FMAs, as cuBLAS's f32
+product forms each logit; TF32 would change the results). Both share the
+work split, the TMA loads and the merge of partial results
+(``csrc/vocab_topk_lse_plan.cuh``); E is zero-padded to a multiple of 8 for
+TMA's 16-byte row stride. Neither writes the (R, V) logits to device memory.
+On CPU tensors it runs :func:`matmul_top_k_with_lse_plain`.
 """
 
 from __future__ import annotations
@@ -47,32 +49,35 @@ def _check(x: torch.Tensor, emb: torch.Tensor, k: int) -> None:
 
 def pad_width(x: torch.Tensor, emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zero-pad E of x (R, E) and emb (V, E) up to a multiple of 8 (TMA
-    needs bf16 rows that are a multiple of 16 bytes). Zeros add nothing to a
-    dot product, so the head's logits are unchanged."""
+    needs rows that are a multiple of 16 bytes: 8 bf16 or 4 f32). Zeros add
+    nothing to a dot product, so the head's logits are unchanged."""
     pad = -x.shape[1] % 8
     if pad == 0:
         return x, emb
     return F.pad(x, (0, pad)), F.pad(emb, (0, pad))
 
 
-def bf16_plan(R: int, V: int, E: int, k: int) -> Dict[str, int]:
-    """How the bf16 kernel splits (R, V, E) with k on the current CUDA
-    device (E already a multiple of 8): persistent blocks, row-tile segments
-    per block at most, pipeline stages, dynamic shared memory and scratch
-    bytes."""
+def plan(R: int, V: int, E: int, k: int, dtype: torch.dtype) -> Dict[str, int]:
+    """How the kernel of ``dtype`` (float32 or bfloat16) splits (R, V, E)
+    with k on the current CUDA device (E already a multiple of 8):
+    persistent blocks, row-tile segments per block at most, pipeline
+    stages, dynamic shared memory, scratch bytes and K chunks."""
     from style_seqcvae_tpu_torch.ops.kernels import _build
 
     lib = _build.library()
-    out = (ctypes.c_longlong * 5)()
-    _build.check(lib, lib.ssc_vocab_topk_lse_bf16_plan(R, V, E, k, out), "vocab_topk_lse plan")
-    return dict(zip(("blocks", "segments", "stages", "smem_bytes", "scratch_bytes"), out))
+    fn = lib.ssc_vocab_topk_lse_bf16_plan if dtype == torch.bfloat16 else \
+        lib.ssc_vocab_topk_lse_f32_plan
+    out = (ctypes.c_longlong * 6)()
+    _build.check(lib, fn(R, V, E, k, out), "vocab_topk_lse plan")
+    return dict(zip(("blocks", "segments", "stages", "smem_bytes", "scratch_bytes", "chunks"),
+                    out))
 
 
 def matmul_top_k_with_lse(x: torch.Tensor, emb: torch.Tensor, k: int
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Same contract as :func:`matmul_top_k_with_lse_plain`. One call counts
-    one launch, although the bf16 path runs two CUDA kernels (the product
-    with its partial top-k, then the merge)."""
+    one launch, although each path runs two CUDA kernels (the product with
+    its partial top-k, then the merge)."""
     global launches
     _check(x, emb, k)
     if x.device.type == "cpu":
@@ -93,19 +98,16 @@ def matmul_top_k_with_lse(x: torch.Tensor, emb: torch.Tensor, k: int
         return vals, idx, lse
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if x.dtype == torch.float32:
-            rc = lib.ssc_vocab_topk_lse_f32(x.data_ptr(), emb.data_ptr(), vals.data_ptr(),
-                                            idx.data_ptr(), lse.data_ptr(), R, V, E, k, stream)
-        else:
-            x, emb = pad_width(x, emb)
-            E = x.shape[1]
-            # TMA reads from 16-byte aligned rows
-            x, emb = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, emb))
-            plan = bf16_plan(R, V, E, k)
-            scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8, device=x.device)
-            rc = lib.ssc_vocab_topk_lse_bf16(x.data_ptr(), emb.data_ptr(), vals.data_ptr(),
-                                             idx.data_ptr(), lse.data_ptr(),
-                                             scratch.data_ptr(), R, V, E, k, stream)
+        x, emb = pad_width(x, emb)
+        E = x.shape[1]
+        # TMA reads from 16-byte aligned rows
+        x, emb = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, emb))
+        scratch = torch.empty(plan(R, V, E, k, x.dtype)["scratch_bytes"], dtype=torch.uint8,
+                              device=x.device)
+        launch = lib.ssc_vocab_topk_lse_bf16 if x.dtype == torch.bfloat16 else \
+            lib.ssc_vocab_topk_lse_f32
+        rc = launch(x.data_ptr(), emb.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                    lse.data_ptr(), scratch.data_ptr(), R, V, E, k, stream)
     _build.check(lib, rc, "vocab_topk_lse")
     launches += 1
     return vals, idx, lse

@@ -121,6 +121,81 @@ def test_vocab_topk_lse_bf16_kernel(dev, R, V, E, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R,V,E,k", [
+    (129, 10501, 33, 1), (129, 127, 599, 127), (129, 129, 300, 10),   # a row past a tile
+    (6400, 10500, 600, 10), (6400, 129, 599, 1), (6400, 10501, 33, 127),  # a split chunk
+])
+def test_vocab_topk_lse_f32_kernel(dev, R, V, E, k):
+    """The f32 CUDA-core kernel across the boundaries of its work split: R
+    129 and 6,400, V below, just above and past whole 128-column tiles, E
+    with a K tail past 32-wide chunks or padded to 8, k 1 and 127. Columns
+    1, V // 2 and V - 1 share one embedding row, scaled up so that it often
+    tops a row (exact ties across tiles and blocks), and the last row of x
+    is zero: all its logits tie at 0."""
+    gen = torch.Generator(device=dev).manual_seed(R + V + E + k)
+    x = torch.tanh(torch.randn(R, E, generator=gen, device=dev))
+    x[-1] = 0.0
+    emb = torch.randn(V, E, generator=gen, device=dev)
+    tied = [1, V // 2, V - 1]
+    emb[tied] = 3 * emb[1]
+    before = vocab_topk_lse.launches
+    got = vocab_topk_lse.matmul_top_k_with_lse(x, emb, k)
+    want = vocab_topk_lse.matmul_top_k_with_lse_plain(x, emb, k)
+    torch.cuda.synchronize()
+    assert vocab_topk_lse.launches == before + 1
+    torch.testing.assert_close(got[0], want[0], atol=A_TOL, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=LSE_TOL, rtol=0)
+    swapped = got[1] != want[1]
+    assert swapped.float().mean().item() < 1e-3
+    assert all(len(set(row)) == k for row in got[1].tolist())     # distinct indices
+    assert bool(((got[1] >= 0) & (got[1] < V)).all())
+    same = got[0][:, 1:] == got[0][:, :-1]
+    assert bool((got[1][:, 1:] > got[1][:, :-1])[same].all())     # ties: lower index first
+    top_tied = torch.isin(want[1][:, 0], torch.tensor(tied, device=dev))
+    assert top_tied.any()
+    assert torch.equal(got[1][top_tied, :2], want[1][top_tied, :2])
+    # the row of all-equal logits: the k lowest indices, lse = log V
+    assert got[1][-1].tolist() == list(range(k))
+    assert got[0][-1].eq(0).all()
+    assert abs(got[2][-1].item() - float(np.log(V))) < LSE_TOL
+
+
+@pytest.mark.cuda
+def test_vocab_topk_lse_f32_topk_spans_segments(dev):
+    """Row 0's top 10 lie in the runs of different persistent blocks (its
+    row tile crosses segments), with one exact tie between two of them:
+    the merge of the partial lists must give the plain version's order."""
+    R, V, E, k = 6400, 10500, 600, 10
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.tanh(torch.randn(R, E, generator=gen, device=dev))
+    emb = torch.randn(V, E, generator=gen, device=dev)
+    plan = vocab_topk_lse.plan(R, V, E + (-E % 8), k, torch.float32)
+    tiles, blocks = -(-V // 128), plan["blocks"]
+    units = -(-R // 128) * tiles
+    start = [b * units // blocks for b in range(blocks + 1)]
+    # the blocks whose runs hold units of row tile 0 (units 0 .. tiles - 1)
+    owners = [b for b in range(blocks) if start[b] < tiles and start[b + 1] > 0]
+    assert len(owners) >= 2
+    first, last = (range(start[b] * 128, min(start[b + 1] * 128, V))
+                   for b in (owners[0], owners[-1]))
+    cols = [first[7], last[3], first[40], last[60], first[99], last[11], first[3],
+            last[20], first[70], last[-1]]
+    unit = x[0] / x[0].norm()
+    for j, c in enumerate(cols):
+        emb[c] = (20.0 - j) * unit                           # row 0's top 10, in this order
+    emb[last[3]] = emb[first[7]]                             # a tie across the segments
+    got = vocab_topk_lse.matmul_top_k_with_lse(x, emb, k)
+    want = vocab_topk_lse.matmul_top_k_with_lse_plain(x, emb, k)
+    torch.cuda.synchronize()
+    assert sorted(got[1][0].tolist()) == sorted(cols)
+    assert got[1][0, :2].tolist() == sorted([first[7], last[3]])
+    assert torch.equal(got[1][0], want[1][0])
+    torch.testing.assert_close(got[0], want[0], atol=A_TOL, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=LSE_TOL, rtol=0)
+    assert (got[1] != want[1]).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,V,k", [(300, 10500, 10), (7, 130, 127)])
 def test_topk_lse_kernel(dev, dtype, R, V, k):
