@@ -27,7 +27,7 @@ The numpy FSM packers are copies of the JAX package's (``:39-118``).
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -41,6 +41,13 @@ from style_seqcvae_tpu_torch.decoding.beam_search import (
 from style_seqcvae_tpu_torch.ops.kernels.topk_lse import top_k_with_lse
 from style_seqcvae_tpu_torch.ops.kernels.vocab_topk_lse import matmul_top_k_with_lse
 from style_seqcvae_tpu_torch.ops.topk import small_top_k, top_k
+from style_seqcvae_tpu_torch.utils.tracing import (
+    CBS_FINISH,
+    CBS_SEARCH,
+    CBS_SELECT,
+    CBS_SETUP,
+    span,
+)
 
 MASK_VAL = -1e20
 SELECTIONS = ("prehead", "fused", "raw", "logprob")
@@ -136,8 +143,12 @@ def constrained_beam_search_fast(
     end_index: int,
     selection: str = "prehead",
     embedding: torch.Tensor = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (sequences (B, S, K, T), log-probs (B, S, K)).
+    finish: Optional[Callable] = None,
+):
+    """Returns (sequences (B, S, K, T), log-probs (B, S, K)), or what
+    ``finish`` makes of them: the caller's last work on the beams (the
+    harness's best-beam selection), run inside the search's
+    ``ssc.cbs.finish`` span (``utils/tracing.py``).
 
     ``selection="prehead"``: ``step_fn`` returns the (…, E) pre-embedding
     activation and ``embedding`` (V, E) is the tied table. ``"fused"`` and
@@ -153,74 +164,75 @@ def constrained_beam_search_fast(
         raise ValueError(f"selection must be one of {SELECTIONS}, got {selection!r}")
     if selection == "prehead" and embedding is None:
         raise ValueError("prehead selection needs the tied embedding table (V, E)")
-    check_noise(noise, max_steps, start_tokens.device)
-    from_tensor = torch.is_tensor(noise)
-    B, S = fsm.default_dest.shape
-    E = fsm.exc_token.shape[-1]
-    K = beam_size
-    pnbs = per_node_beam_size or beam_size
-    dev = start_tokens.device
-    states = torch.arange(S, device=dev)
-    bidx = torch.arange(B, device=dev)
-    neg_inf = torch.tensor(float("-inf"), device=dev)
+    with span(CBS_SETUP):
+        check_noise(noise, max_steps, start_tokens.device)
+        from_tensor = torch.is_tensor(noise)
+        B, S = fsm.default_dest.shape
+        E = fsm.exc_token.shape[-1]
+        K = beam_size
+        pnbs = per_node_beam_size or beam_size
+        dev = start_tokens.device
+        states = torch.arange(S, device=dev)
+        bidx = torch.arange(B, device=dev)
+        neg_inf = torch.tensor(float("-inf"), device=dev)
 
-    # ---- first step: transitions from state 0 ----------------------------
-    k0 = noise[0][:, :1, :1] if from_tensor else noise
-    out0, state = step_fn(start_tokens[:, None, None],
-                          _map_state(lambda t: t[:, None, None], init_state), k0)
-    if selection == "prehead":
-        # B rows only: the (B, V) logits are cheap to materialise here
-        logits0 = torch.matmul(out0[:, 0, 0, :].float(), embedding.float().T)
-        lp0 = logits0 - torch.logsumexp(logits0, dim=-1, keepdim=True)
-    elif selection in RAW_SELECTIONS:
-        logits0, logz0 = out0
-        lp0 = logits0[:, 0, 0, :].float() - logz0[:, 0, 0, None]
-    else:
-        lp0 = out0[:, 0, 0, :]
-    V = lp0.shape[-1]
+        # ---- first step: transitions from state 0 ----------------------------
+        k0 = noise[0][:, :1, :1] if from_tensor else noise
+        out0, state = step_fn(start_tokens[:, None, None],
+                              _map_state(lambda t: t[:, None, None], init_state), k0)
+        if selection == "prehead":
+            # B rows only: the (B, V) logits are cheap to materialise here
+            logits0 = torch.matmul(out0[:, 0, 0, :].float(), embedding.float().T)
+            lp0 = logits0 - torch.logsumexp(logits0, dim=-1, keepdim=True)
+        elif selection in RAW_SELECTIONS:
+            logits0, logz0 = out0
+            lp0 = logits0[:, 0, 0, :].float() - logz0[:, 0, 0, None]
+        else:
+            lp0 = out0[:, 0, 0, :]
+        V = lp0.shape[-1]
 
-    # additive scatter, then > 0: a padding entry (token 0, valid False) and a
-    # real token-0 exception land on the same index, and accumulate ORs them
-    exc_mask0 = torch.zeros((B, V), dtype=torch.int32, device=dev)
-    exc_mask0.index_put_((bidx[:, None].expand(B, E), fsm.exc_token[:, 0, :]),
-                         fsm.exc_valid[:, 0, :].to(torch.int32), accumulate=True)
-    def0_lp, def0_cls = small_top_k(torch.where(exc_mask0 > 0, neg_inf, lp0), K)
-    exc0_lp = torch.where(fsm.exc_valid[:, 0, :],
-                          torch.gather(lp0, -1, fsm.exc_token[:, 0, :]), neg_inf)
+        # additive scatter, then > 0: a padding entry (token 0, valid False) and a
+        # real token-0 exception land on the same index, and accumulate ORs them
+        exc_mask0 = torch.zeros((B, V), dtype=torch.int32, device=dev)
+        exc_mask0.index_put_((bidx[:, None].expand(B, E), fsm.exc_token[:, 0, :]),
+                             fsm.exc_valid[:, 0, :].to(torch.int32), accumulate=True)
+        def0_lp, def0_cls = small_top_k(torch.where(exc_mask0 > 0, neg_inf, lp0), K)
+        exc0_lp = torch.where(fsm.exc_valid[:, 0, :],
+                              torch.gather(lp0, -1, fsm.exc_token[:, 0, :]), neg_inf)
 
-    d0 = fsm.default_dest[:, 0]
-    def_part = torch.where((d0[:, None] == states[None, :])[:, :, None],
-                           def0_lp[:, None, :], neg_inf)                  # (B, S, K)
-    exc_part = torch.where(fsm.exc_dest[:, 0, None, :] == states[None, :, None],
-                           exc0_lp[:, None, :], neg_inf)                  # (B, S, E)
-    cand0 = torch.cat([def_part, exc_part], dim=-1)
-    cand0_cls = torch.cat([def0_cls[:, None, :].expand(B, S, K),
-                           fsm.exc_token[:, 0, None, :].expand(B, S, E)], dim=-1)
-    last_lp, idx0 = small_top_k(cand0, K)                                 # (B, S, K)
-    last_lp = last_lp.float()
-    last_preds = torch.gather(cand0_cls, -1, idx0)
-    preds_t = [last_preds.reshape(B, S * K)]
-    bp_t = []
+        d0 = fsm.default_dest[:, 0]
+        def_part = torch.where((d0[:, None] == states[None, :])[:, :, None],
+                               def0_lp[:, None, :], neg_inf)                  # (B, S, K)
+        exc_part = torch.where(fsm.exc_dest[:, 0, None, :] == states[None, :, None],
+                               exc0_lp[:, None, :], neg_inf)                  # (B, S, E)
+        cand0 = torch.cat([def_part, exc_part], dim=-1)
+        cand0_cls = torch.cat([def0_cls[:, None, :].expand(B, S, K),
+                               fsm.exc_token[:, 0, None, :].expand(B, S, E)], dim=-1)
+        last_lp, idx0 = small_top_k(cand0, K)                                 # (B, S, K)
+        last_lp = last_lp.float()
+        last_preds = torch.gather(cand0_cls, -1, idx0)
+        preds_t = [last_preds.reshape(B, S * K)]
+        bp_t = []
 
-    state = _map_state(lambda t: t.expand((B, S, K) + tuple(t.shape[3:])).contiguous(), state)
+        state = _map_state(lambda t: t.expand((B, S, K) + tuple(t.shape[3:])).contiguous(), state)
 
-    end_pattern = torch.full((pnbs,), MASK_VAL, device=dev)
-    end_pattern[0] = 0.0
-    mask_val = torch.tensor(MASK_VAL, device=dev)
-    if selection == "prehead":
-        # exception-token embedding rows are step-constant: gather them once
-        exc_emb = (embedding[fsm.exc_token].float()
-                   * fsm.exc_valid[..., None].float())                   # (B, S, E, Ed)
-    exc_tok_k = fsm.exc_token[:, :, None, :].expand(B, S, K, E)
-    k_tot = pnbs + E
-    if selection in ("raw", "logprob"):
-        # static per-state exception mask over the vocabulary, by the same
-        # additive scatter as exc_mask0
-        exc_vocab_mask = torch.zeros((B, S, V), dtype=torch.int32, device=dev)
-        exc_vocab_mask.index_put_((bidx[:, None, None].expand(B, S, E),
-                                   states[None, :, None].expand(B, S, E), fsm.exc_token),
-                                  fsm.exc_valid.to(torch.int32), accumulate=True)
-        exc_vocab_mask = (exc_vocab_mask > 0)[:, :, None, :]              # (B, S, 1, V)
+        end_pattern = torch.full((pnbs,), MASK_VAL, device=dev)
+        end_pattern[0] = 0.0
+        mask_val = torch.tensor(MASK_VAL, device=dev)
+        if selection == "prehead":
+            # exception-token embedding rows are step-constant: gather them once
+            exc_emb = (embedding[fsm.exc_token].float()
+                       * fsm.exc_valid[..., None].float())                   # (B, S, E, Ed)
+        exc_tok_k = fsm.exc_token[:, :, None, :].expand(B, S, K, E)
+        k_tot = pnbs + E
+        if selection in ("raw", "logprob"):
+            # static per-state exception mask over the vocabulary, by the same
+            # additive scatter as exc_mask0
+            exc_vocab_mask = torch.zeros((B, S, V), dtype=torch.int32, device=dev)
+            exc_vocab_mask.index_put_((bidx[:, None, None].expand(B, S, E),
+                                       states[None, :, None].expand(B, S, E), fsm.exc_token),
+                                      fsm.exc_valid.to(torch.int32), accumulate=True)
+            exc_vocab_mask = (exc_vocab_mask > 0)[:, :, None, :]              # (B, S, 1, V)
 
     def default_from_topk(tvals, tidx, logz):
         """Drop exception tokens from an unmasked top-(pnbs + E); exact,
@@ -232,67 +244,71 @@ def constrained_beam_search_fast(
 
     for t in range(1, max_steps):
         out, new_state = step_fn(last_preds, state, noise[t] if from_tensor else noise)
-        if selection == "prehead":
-            proj = out                                                    # (B, S, K, Ed)
-            tvals, tidx, lse = matmul_top_k_with_lse(
-                proj.reshape(B * S * K, -1).contiguous(), embedding, k_tot)
-            exc_l = torch.matmul(proj.float(), exc_emb.transpose(-1, -2))  # (B, S, K, E)
-        elif selection == "fused":
-            logits, _ = out
-            tvals, tidx, lse = top_k_with_lse(logits.reshape(B * S * K, V).contiguous(), k_tot)
-            exc_l = torch.gather(logits, -1, exc_tok_k).float()
-        if selection in ("prehead", "fused"):
-            logz = lse.reshape(B, S, K)
-            def_lp, def_cls = default_from_topk(tvals.reshape(B, S, K, k_tot),
-                                                tidx.reshape(B, S, K, k_tot).long(), logz)
-            exc_lp = torch.where(fsm.exc_valid[:, :, None, :], exc_l - logz[..., None],
-                                 mask_val)
-        elif selection == "raw":
-            logits, logz = out
-            def_l, def_cls = small_top_k(torch.where(exc_vocab_mask, mask_val, logits), pnbs)
-            def_lp = def_l.float() - logz[..., None]
-            # JAX takes the exception logits by a one-hot einsum, because a
-            # gather along the lanes is slow on a TPU; the gather returns
-            # the same values
-            exc_l = torch.gather(logits, -1, exc_tok_k).float()
-            exc_lp = torch.where(fsm.exc_valid[:, :, None, :], exc_l - logz[..., None],
-                                 mask_val)
-        else:
-            cleaned = _cleaned_log_probs(out, last_preds, end_index)
-            def_lp, def_cls = small_top_k(torch.where(exc_vocab_mask, mask_val, cleaned), pnbs)
-            exc_lp = torch.where(fsm.exc_valid[:, :, None, :],
-                                 torch.gather(cleaned, -1, exc_tok_k), mask_val)
+        with span(CBS_SELECT):
+            if selection == "prehead":
+                proj = out                                                    # (B, S, K, Ed)
+                tvals, tidx, lse = matmul_top_k_with_lse(
+                    proj.reshape(B * S * K, -1).contiguous(), embedding, k_tot)
+                exc_l = torch.matmul(proj.float(), exc_emb.transpose(-1, -2))  # (B, S, K, E)
+            elif selection == "fused":
+                logits, _ = out
+                tvals, tidx, lse = top_k_with_lse(logits.reshape(B * S * K, V).contiguous(), k_tot)
+                exc_l = torch.gather(logits, -1, exc_tok_k).float()
+            if selection in ("prehead", "fused"):
+                logz = lse.reshape(B, S, K)
+                def_lp, def_cls = default_from_topk(tvals.reshape(B, S, K, k_tot),
+                                                    tidx.reshape(B, S, K, k_tot).long(), logz)
+                exc_lp = torch.where(fsm.exc_valid[:, :, None, :], exc_l - logz[..., None],
+                                     mask_val)
+            elif selection == "raw":
+                logits, logz = out
+                def_l, def_cls = small_top_k(torch.where(exc_vocab_mask, mask_val, logits), pnbs)
+                def_lp = def_l.float() - logz[..., None]
+                # JAX takes the exception logits by a one-hot einsum, because a
+                # gather along the lanes is slow on a TPU; the gather returns
+                # the same values
+                exc_l = torch.gather(logits, -1, exc_tok_k).float()
+                exc_lp = torch.where(fsm.exc_valid[:, :, None, :], exc_l - logz[..., None],
+                                     mask_val)
+            else:
+                cleaned = _cleaned_log_probs(out, last_preds, end_index)
+                def_lp, def_cls = small_top_k(torch.where(exc_vocab_mask, mask_val, cleaned), pnbs)
+                exc_lp = torch.where(fsm.exc_valid[:, :, None, :],
+                                     torch.gather(cleaned, -1, exc_tok_k), mask_val)
 
-        if selection != "logprob":
-            # end freezing after the selection: ended beams emit end with
-            # log-prob 0 (the log-prob branch froze them before it)
-            ended = (last_preds == end_index)[..., None]
-            def_lp = torch.where(ended, end_pattern, def_lp)
-            def_cls = torch.where(ended, torch.full_like(def_cls, end_index), def_cls)
-            exc_lp = torch.where(ended, mask_val, exc_lp)
+            if selection != "logprob":
+                # end freezing after the selection: ended beams emit end with
+                # log-prob 0 (the log-prob branch froze them before it)
+                ended = (last_preds == end_index)[..., None]
+                def_lp = torch.where(ended, end_pattern, def_lp)
+                def_cls = torch.where(ended, torch.full_like(def_cls, end_index), def_cls)
+                exc_lp = torch.where(ended, mask_val, exc_lp)
 
-        # candidates per (target state, source state, beam), on tiny tensors
-        dmask = fsm.default_dest[:, None, :] == states[None, :, None]       # (B, S_to, S_from)
-        def_c = torch.where(dmask[:, :, :, None, None], def_lp[:, None], mask_val)
-        emask = fsm.exc_dest[:, None, :, :] == states[None, :, None, None]  # (B, S_to, S_from, E)
-        exc_c = torch.where(emask[:, :, :, None, :], exc_lp[:, None], mask_val)
-        cand = torch.cat([def_c, exc_c], dim=-1)           # (B, S_to, S_from, K, pnbs + E)
-        top_lp, top_idx = small_top_k(cand, pnbs)
-        cand_cls = torch.cat([def_cls[:, None].expand(B, S, S, K, pnbs),
-                              fsm.exc_token[:, None, :, None, :].expand(B, S, S, K, E)],
-                             dim=-1)
-        top_cls = torch.gather(cand_cls, -1, top_idx)
-        summed = top_lp.float() + last_lp[:, None, :, :, None]
-        new_lp, idx = top_k(summed.reshape(B, S, S * K * pnbs), K)         # (B, S_to, K)
-        new_preds = torch.gather(top_cls.reshape(B, S, S * K * pnbs), 2, idx)
-        backptr = torch.div(idx, pnbs, rounding_mode="floor").reshape(B, S * K)
-        state = _map_state(lambda x: pick_beams(x.reshape((B, S * K) + tuple(x.shape[3:])),
-                                                backptr).reshape(x.shape), new_state)
-        last_preds, last_lp = new_preds, new_lp
-        preds_t.append(new_preds.reshape(B, S * K))
-        bp_t.append(backptr)
+        with span(CBS_SEARCH):
+            # candidates per (target state, source state, beam), on tiny tensors
+            dmask = fsm.default_dest[:, None, :] == states[None, :, None]     # (B, S_to, S_from)
+            def_c = torch.where(dmask[:, :, :, None, None], def_lp[:, None], mask_val)
+            emask = fsm.exc_dest[:, None, :, :] == states[None, :, None, None]  # (B, S_to, S_from, E)
+            exc_c = torch.where(emask[:, :, :, None, :], exc_lp[:, None], mask_val)
+            cand = torch.cat([def_c, exc_c], dim=-1)           # (B, S_to, S_from, K, pnbs + E)
+            top_lp, top_idx = small_top_k(cand, pnbs)
+            cand_cls = torch.cat([def_cls[:, None].expand(B, S, S, K, pnbs),
+                                  fsm.exc_token[:, None, :, None, :].expand(B, S, S, K, E)],
+                                 dim=-1)
+            top_cls = torch.gather(cand_cls, -1, top_idx)
+            summed = top_lp.float() + last_lp[:, None, :, :, None]
+            new_lp, idx = top_k(summed.reshape(B, S, S * K * pnbs), K)         # (B, S_to, K)
+            new_preds = torch.gather(top_cls.reshape(B, S, S * K * pnbs), 2, idx)
+            backptr = torch.div(idx, pnbs, rounding_mode="floor").reshape(B, S * K)
+            state = _map_state(lambda x: pick_beams(x.reshape((B, S * K) + tuple(x.shape[3:])),
+                                                    backptr).reshape(x.shape), new_state)
+            last_preds, last_lp = new_preds, new_lp
+            preds_t.append(new_preds.reshape(B, S * K))
+            bp_t.append(backptr)
 
-    backptrs = torch.stack(bp_t) if bp_t else torch.zeros((0, B, S * K), dtype=torch.long,
-                                                          device=dev)
-    sequences = reconstruct_sequences(torch.stack(preds_t), backptrs)
-    return sequences.reshape(B, S, K, max_steps), last_lp
+    with span(CBS_FINISH):
+        backptrs = torch.stack(bp_t) if bp_t else torch.zeros((0, B, S * K), dtype=torch.long,
+                                                              device=dev)
+        sequences = reconstruct_sequences(torch.stack(preds_t), backptrs)
+        out = sequences.reshape(B, S, K, max_steps), last_lp
+        return finish(*out) if finish else out

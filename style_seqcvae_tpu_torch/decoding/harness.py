@@ -49,6 +49,7 @@ from style_seqcvae_tpu_torch.models.captioner import (
 )
 from style_seqcvae_tpu_torch.models.updown_cell import init_cell_state
 from style_seqcvae_tpu_torch.parallel.mesh import Mesh, decode_grid_split, replicate
+from style_seqcvae_tpu_torch.utils.tracing import CBS_SETUP, DECODE_CBS, span
 from style_seqcvae_tpu_torch.weights import FAMILIES, param_family
 
 
@@ -334,36 +335,45 @@ class DecodeHarness:
         if self.mesh is not None:
             return self._split_cbs(feats, sentiment, obj_att_embeds, tables, num_constraints,
                                    noise, n_z, selection, return_all)
-        cfg, dev = self.cfg, self.device
-        feats, sentiment, obj_att_embeds = self._inputs(feats, sentiment, obj_att_embeds)
-        B = feats.shape[0]
-        fsm = fsm_to_device(_stacked_tables(tables, n_z, B), dev)
-        Z = fsm.default_dest.shape[0]
-        if Z != n_z or fsm.default_dest.shape[1] != B:
-            raise ValueError(f"tables are {tuple(fsm.default_dest.shape[:2])}, want ({n_z}, {B})")
-        # (Z, B, ...) → image-major rows (B·Z, ...)
-        fsm = FSMTables(*[t.transpose(0, 1).reshape((B * Z,) + tuple(t.shape[2:])) for t in fsm])
-        nc = _constraint_counts(num_constraints, B)
-        nc = nc.to(dev) if torch.is_tensor(nc) else torch.as_tensor(nc, device=dev)
+        with span(DECODE_CBS):
+            with span(CBS_SETUP):
+                cfg, dev = self.cfg, self.device
+                feats, sentiment, obj_att_embeds = self._inputs(feats, sentiment,
+                                                                obj_att_embeds)
+                B = feats.shape[0]
+                fsm = fsm_to_device(_stacked_tables(tables, n_z, B), dev)
+                Z = fsm.default_dest.shape[0]
+                if Z != n_z or fsm.default_dest.shape[1] != B:
+                    raise ValueError(f"tables are {tuple(fsm.default_dest.shape[:2])}, "
+                                     f"want ({n_z}, {B})")
+                # (Z, B, ...) → image-major rows (B·Z, ...)
+                fsm = FSMTables(*[t.transpose(0, 1).reshape((B * Z,) + tuple(t.shape[2:]))
+                                  for t in fsm])
+                nc = _constraint_counts(num_constraints, B)
+                nc = nc.to(dev) if torch.is_tensor(nc) else torch.as_tensor(nc, device=dev)
 
-        prehead = selection == "prehead"
-        grid_step = self._grid_step(feats, sentiment, obj_att_embeds, Z,
-                                    return_raw=selection in RAW_SELECTIONS,
-                                    return_prehead=prehead)
-        noise = self._noise_rows(noise, Z, B, (fsm.default_dest.shape[1], cfg.beam_size))
-        start = torch.full((B * Z,), cfg.boundary_index, dtype=torch.long, device=dev)
-        init_state = self._init_state(B * Z, feats.dtype)
-        seqs, lp = constrained_beam_search_fast(
-            grid_step, start, init_state, fsm, noise,
-            max_steps=cfg.max_caption_length, beam_size=cfg.beam_size,
-            per_node_beam_size=cfg.beam_size // 2, end_index=cfg.boundary_index,
-            selection=selection, embedding=self.params["embedding"] if prehead else None)
+                prehead = selection == "prehead"
+                grid_step = self._grid_step(feats, sentiment, obj_att_embeds, Z,
+                                            return_raw=selection in RAW_SELECTIONS,
+                                            return_prehead=prehead)
+                noise = self._noise_rows(noise, Z, B, (fsm.default_dest.shape[1],
+                                                       cfg.beam_size))
+                start = torch.full((B * Z,), cfg.boundary_index, dtype=torch.long, device=dev)
+                init_state = self._init_state(B * Z, feats.dtype)
 
-        if return_all:
-            return self._z_major(seqs, B, Z), self._z_major(lp, B, Z)
-        best, best_lp = select_best_beam_simple(seqs, lp, nc.repeat_interleave(Z),
-                                                cfg.min_constraints_to_satisfy)
-        return self._z_major(best, B, Z), self._z_major(best_lp, B, Z)
+            def finish(seqs, lp):
+                if return_all:
+                    return self._z_major(seqs, B, Z), self._z_major(lp, B, Z)
+                best, best_lp = select_best_beam_simple(seqs, lp, nc.repeat_interleave(Z),
+                                                        cfg.min_constraints_to_satisfy)
+                return self._z_major(best, B, Z), self._z_major(best_lp, B, Z)
+
+            return constrained_beam_search_fast(
+                grid_step, start, init_state, fsm, noise,
+                max_steps=cfg.max_caption_length, beam_size=cfg.beam_size,
+                per_node_beam_size=cfg.beam_size // 2, end_index=cfg.boundary_index,
+                selection=selection, embedding=self.params["embedding"] if prehead else None,
+                finish=finish)
 
     @torch.inference_mode()
     def decode_beam(self, feats, sentiment, obj_att_embeds,

@@ -43,6 +43,7 @@ from style_seqcvae_tpu_torch.parallel.tensor_parallel import (
     vocab_parallel_embedding,
     vocab_parallel_nll,
 )
+from style_seqcvae_tpu_torch.utils.tracing import STEP, STEP_ATTENTION, span
 
 
 class CaptionerConfig(NamedTuple):
@@ -418,7 +419,7 @@ def make_optimized_step_fn(params: Dict[str, Any], cfg: CaptionerConfig,
     w_rows.append(w_d[offset + cfg.z_space:])
     w_dyn = torch.cat(w_rows, dim=0)          # step-constant, concatenated once
 
-    def step(tokens: torch.Tensor, state: CellState, noise):
+    def model_step(tokens: torch.Tensor, state: CellState, noise):
         grid = tuple(tokens.shape)
         extra = len(grid) - 1
 
@@ -430,13 +431,15 @@ def make_optimized_step_fn(params: Dict[str, Any], cfg: CaptionerConfig,
                  + torch.matmul(xh, w_a_h) + cell.attention_lstm.b)
         h1, c1 = gate_math(gates, state.h1, state.c1)
 
-        attn_w = attention_weights(cell.attention, h1, ctx.projected_image_features,
-                                   ctx.image_features_mask)
-        attended = _attend(attn_w, ctx.image_features)
+        attribute_prior = cfg.sentiment_vae == 2 and ctx.obj_att_embeds is not None
+        with span(STEP_ATTENTION):
+            attn_w = attention_weights(cell.attention, h1, ctx.projected_image_features,
+                                       ctx.image_features_mask)
+            attended = _attend(attn_w, ctx.image_features)
+            if attribute_prior:
+                prior_mean = _attend(attn_w, ctx.obj_att_embeds)
 
-        if cfg.sentiment_vae == 2 and ctx.obj_att_embeds is not None:
-            prior_mean = _attend(attn_w, ctx.obj_att_embeds)
-        else:
+        if not attribute_prior:
             prior_mean = bcast(ctx.prior_mean).expand(grid + tuple(ctx.prior_mean.shape[-1:]))
         if cfg.simple_vae:
             prior_mean = torch.zeros_like(prior_mean)
@@ -470,5 +473,9 @@ def make_optimized_step_fn(params: Dict[str, Any], cfg: CaptionerConfig,
         if return_raw:
             return (logits, torch.logsumexp(logits.float(), dim=-1)), new_state
         return torch.log_softmax(logits, dim=-1), new_state
+
+    def step(tokens: torch.Tensor, state: CellState, noise):
+        with span(STEP):
+            return model_step(tokens, state, noise)
 
     return step
