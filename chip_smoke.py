@@ -31,12 +31,26 @@ one JSON line per phase as it goes:
    3: V=10500, E=600, H=900, P=768, z=150, F=2048, 100 boxes, 20 steps, batch
    16 x 20 z-samples x 8 FSM states x beam 5, sentiment_vae 1, bf16) through
    ``DecodeHarness.decode_cbs`` once per selection, with each kernel's launch
-   count from that run, then ``decode_compare``: the share of identical best
-   captions for every pair of selections; then the decode that the
-   inference CLI runs by default, f32 parameters and features through
-   "prehead" (kernel A's f32 route, 19 launches), timed, against the same
-   f32 decode through "raw" (no kernel): at least 99% of the best captions
-   identical;
+   count from that run (the attention kernel's 20 in every selection), then
+   ``decode_compare``: the share of identical best captions for every pair
+   of selections; then the decode that the inference CLI runs by default,
+   f32 parameters and features through "prehead" (kernel A's f32 route, 19
+   launches; the attention kernel's, 20), timed, against the same f32
+   decode through "raw" (no selection kernel): at least 99% of the best
+   captions identical; then ``attention``: the BUTD attention kernel
+   (``csrc/butd_attention.cu``) against its plain version in f32 and bf16
+   at the cells' decode step (16 images x 800 rows over 100 boxes, P 768)
+   and a serve request's (one image, 800 rows, a ragged mask), timed by CUDA
+   graph beside the plain version's time and its bound (the tanh count over
+   the SFU's rate or the FP32 lanes' rate, or the bytes over 3.35 TB/s,
+   whichever is longest), and at edge shapes (ragged boxes, one box, 150
+   boxes, odd widths); its f32 logits against the plain arithmetic in f32,
+   masked boxes 0, two launches bit-equal; ``attention_tanh``, the f32
+   route's tanh against tanhf over a sweep; ``attention_decode``, config 3's
+   f32 prehead decode through the kernel (20 launches) against the same
+   decode with the routing's call swapped for the composite: at least 99%
+   of the best captions identical; ``attention_train``, a training step's
+   launches (0);
 5. ``beam``: ``DecodeHarness.decode_beam`` at config 3's widths (batch 16 x
    20 z x beam 5, bf16); ``greedy``: BASELINE.json config 1 as bench.py
    builds it (``greedy_decode`` on the log-prob step, batch 100, 20 steps,
@@ -63,9 +77,10 @@ one JSON line per phase as it goes:
 10. ``sample``: ``DecodeHarness.decode_sample`` at config 3's widths (16 x 20
    z, gumbel at beam 5, bf16) with each sampler at the inference CLI's
    defaults: first and warm decode seconds, captions/s, the output checks,
-   the selection kernels' launches (0), ``distinct_per_image`` (distinct
-   captions among an image's 20) and ``repeat_identical`` (the share of
-   captions a second decode from the same seed repeats);
+   the selection kernels' launches (0) and the attention kernel's (20),
+   ``distinct_per_image`` (distinct captions among an image's 20) and
+   ``repeat_identical`` (the share of captions a second decode from the
+   same seed repeats);
 11. ``diverse``: BASELINE.json config 4 as bench.py:511-581 runs it (config
    3's model with the mode-2 prior, attribute embeddings RandomState(7)),
    3 rounds of a CBS decode and an oracle CIDEr re-score on the host,
@@ -229,7 +244,10 @@ one JSON line per phase as it goes:
 
 then the ``{"kernels": [...]}`` summary (kernel A twice: its bf16 route,
 with the launches of both routes, and its f32 route, ``vocab_topk_lse_f32``,
-with those of the f32 decode), the card's name and power limit from
+with those of the f32 decode; the attention kernel twice, ``butd_attention``
+for bf16, with the launches of the bf16 prehead decode and the workflow's,
+and ``butd_attention_f32``, with those of the f32 prehead decode), the card's
+name and power limit from
 ``nvidia-smi``, and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Exits non-zero at once without a GPU.
 ``python3 chip_smoke.py --split-readings SEED ...`` runs only the build and
@@ -237,7 +255,8 @@ non-zero before the last line. Exits non-zero at once without a GPU.
 ``python3 chip_smoke.py --tp-readings`` runs only the ``tp`` part;
 ``python3 chip_smoke.py --pipeline`` only the build and ``pipeline``;
 ``python3 chip_smoke.py --decode-f32`` only the build and the f32 decode
-rows.
+rows; ``python3 chip_smoke.py --attention`` only the build and the
+attention rows.
 ``python3 chip_smoke.py --pipeline-readings`` runs the build and the
 workflow alone at make_world's defaults (800 / 100 / 100 images) and
 three_stage.sh's detector knobs (16 epochs, ResNet-50), the captioner cut
@@ -325,9 +344,11 @@ from style_seqcvae_tpu_torch.models.detector.rpn import (
 from style_seqcvae_tpu_torch.parallel import distributed_worker as dworker
 from style_seqcvae_tpu_torch.parallel.mesh import make_mesh
 from style_seqcvae_tpu_torch.parallel.multihost import free_port
+from style_seqcvae_tpu_torch.models import attention as attention_mod
 from style_seqcvae_tpu_torch.ops.kernels import (
     KERNEL_INPUTS_ENV,
     _build,
+    butd_attention,
     nms,
     roi_align,
     topk_lse,
@@ -499,6 +520,10 @@ SOURCES = {
                   "style_seqcvae_tpu/ops/pallas/roi_align.py:92"),
     **{site: ("style_seqcvae_tpu_torch/csrc/nms.cu", "style_seqcvae_tpu/ops/pallas/nms.py:58")
        for site in NMS_CALLS},
+    # no TPU kernel: JAX leaves the attention to XLA
+    **{name: ("style_seqcvae_tpu_torch/csrc/butd_attention.cu",
+              "none: style_seqcvae_tpu/models/attention.py:54 (XLA's add, tanh, product and "
+              "masked softmax)") for name in ("butd_attention", "butd_attention_f32")},
     # no TPU kernel: the VJP of JAX's XLA gather RoIAlign, which its
     # detector training differentiates (faster_rcnn.py:143)
     "roi_align_backward": ("style_seqcvae_tpu_torch/csrc/roi_align.cu",
@@ -859,12 +884,25 @@ def decode_cfg(**kw) -> CaptionerConfig:
 
 
 def selection_counts() -> dict:
-    return {"vocab_topk_lse": vocab_topk_lse.launches, "topk_lse": topk_lse.launches}
+    """The launches of the selection kernels A and B and of the attention
+    kernel, which every decode step without a gradient launches once."""
+    return {"vocab_topk_lse": vocab_topk_lse.launches, "topk_lse": topk_lse.launches,
+            "butd_attention": butd_attention.launches}
 
 
 def reset_selection_counts() -> None:
     vocab_topk_lse.launches = 0
     topk_lse.launches = 0
+    butd_attention.launches = 0
+
+
+def decode_expected(selection_kernel=None) -> dict:
+    """:func:`selection_counts` after one decode of STEPS steps: the
+    selection kernel ``selection_kernel`` (if any) once a step after the
+    first, the attention kernel once a step."""
+    return {"vocab_topk_lse": STEPS - 1 if selection_kernel == "vocab_topk_lse" else 0,
+            "topk_lse": STEPS - 1 if selection_kernel == "topk_lse" else 0,
+            "butd_attention": STEPS}
 
 
 def phase_decode(dev: torch.device):
@@ -889,8 +927,7 @@ def phase_decode(dev: torch.device):
                            torch.Generator(device=dev).manual_seed(7), N_Z, selection=selection)
         torch.cuda.synchronize()
         warm_s = time.time() - t0
-        expected = {name: STEPS - 1 if kernel_of.get(selection) == name else 0
-                    for name in counts}
+        expected = decode_expected(kernel_of.get(selection))
         check_decode_output(f"decode ({selection})", best, best_lp, [N_Z, BATCH, STEPS],
                             counts, expected,
                             {"phase": "decode", "selection": selection,
@@ -898,6 +935,9 @@ def phase_decode(dev: torch.device):
                              "warm_run_s": warm_s, "captions_per_s": BATCH * N_Z / warm_s})
         if selection in kernel_of:
             launches[kernel_of[selection]] = counts[kernel_of[selection]]
+        if selection == "prehead":
+            # the bf16 cell's path: the attention kernel's entry counts this run
+            launches["butd_attention"] = counts["butd_attention"]
         best_by_sel[selection] = best
 
     def identical(a, b):
@@ -913,18 +953,20 @@ def phase_decode(dev: torch.device):
     return launches, (harness, sentiment, tables)
 
 
-def phase_decode_f32(dev: torch.device) -> int:
+def phase_decode_f32(dev: torch.device) -> dict:
     """The decode that the inference CLI runs by default (no --bf16): config
     3's grid with f32 parameters and features, CBS with the "prehead"
-    selection (kernel A's f32 route, 19 launches) on the decode phase's
-    seeded noise, timed first and warm; then the same decode through "raw"
-    (no kernel), whose best captions it must match for nearly every (z,
-    image). Returns kernel A's launches of the timed prehead run."""
+    selection (kernel A's f32 route, 19 launches; the attention kernel's
+    f32 route, 20) on the decode phase's seeded noise, timed first and
+    warm; then the same decode through "raw" (no selection kernel), whose
+    best captions it must match for nearly every (z, image). Returns the
+    f32 routes' launches in the timed prehead run, keyed for the kernels
+    line."""
     cfg = decode_cfg()
     params = init_captioner(cfg, seed=0, device=dev, dtype=torch.float32)
     feats, sentiment, tables = decode_setup(cfg, BATCH, N_Z, BOXES, seed=0)
     harness = DecodeHarness(params, cfg, device=dev)
-    best_by_sel, row_by_sel, launches = {}, {}, 0
+    best_by_sel, row_by_sel, launches = {}, {}, {}
     for selection in ("prehead", "raw"):
         reset_selection_counts()
         torch.cuda.synchronize()
@@ -940,14 +982,15 @@ def phase_decode_f32(dev: torch.device) -> int:
                            torch.Generator(device=dev).manual_seed(7), N_Z, selection=selection)
         torch.cuda.synchronize()
         warm_s = time.time() - t0
-        expected = {"vocab_topk_lse": STEPS - 1 if selection == "prehead" else 0, "topk_lse": 0}
+        expected = decode_expected("vocab_topk_lse" if selection == "prehead" else None)
         row = {"phase": "decode", "selection": selection, "dtype": "float32",
                "best_lp_min": best_lp.min().item(), "first_run_s": first_s,
                "warm_run_s": warm_s, "captions_per_s": BATCH * N_Z / warm_s}
         check_decode_output(f"decode ({selection}, f32)", best, best_lp, [N_Z, BATCH, STEPS],
                             counts, expected, row)
         if selection == "prehead":
-            launches = counts["vocab_topk_lse"]
+            launches = {"vocab_topk_lse_f32": counts["vocab_topk_lse"],
+                        "butd_attention_f32": counts["butd_attention"]}
         best_by_sel[selection] = best
     identical = (best_by_sel["prehead"] == best_by_sel["raw"]).all(dim=-1).float().mean().item()
     emit({"phase": "decode_compare", "dtype": "float32", "prehead_vs_raw_identical": identical,
@@ -957,6 +1000,198 @@ def phase_decode_f32(dev: torch.device) -> int:
     del harness, params
     torch.cuda.empty_cache()
     return launches
+
+
+# the BUTD attention kernel (csrc/butd_attention.cu): (images, rows an
+# image, boxes, width) at the cells' decode (16 images x 20 z x 8 states x
+# beam 5 over 100 boxes) and at one serve request over 37 real boxes of 100
+ATTN_SHAPES = {"decode": (BATCH, N_Z * STATES * BEAM, BOXES, P),
+               "serve": (1, N_Z * STATES * BEAM, BOXES, P)}
+# further shapes held to the plain version: ragged boxes and rows, one box
+# at P 100, boxes past one tile (150), odd bf16 rows (P 101: 2-byte copies)
+ATTN_EDGE_SHAPES = [(3, 40, 37, 768), (2, 7, 1, 100), (2, 33, 150, 768), (2, 9, 37, 101)]
+# H100 SXM rates at 1.98 GHz over 132 SMs: the special function
+# unit's 16 results a clock per SM, the FP32 lanes' 128
+SFU_PER_S = 132 * 16 * 1.98e9
+FP32_LANES_PER_S = 132 * 128 * 1.98e9
+# per (row, box, width) element: bf16 one tanh.approx.f32 on the SFU, the
+# add and the FMA; f32 tanhf (ex2 and a reciprocal on the SFU, ~10 FP32
+# operations), the add and the FMA
+ATTN_SFU_PER_ELEM = {torch.bfloat16: 1, torch.float32: 2}
+ATTN_FP32_PER_ELEM = {torch.bfloat16: 2, torch.float32: 12}
+# f32: the kernel's tanh is tanhf, the composite's; its P-long sums run in
+# another order than cuBLAS's matvec (a few 1e-7 on logits of |l| < 1) and
+# its softmax sums 100 exponentials in another order. bf16: its f32 logits
+# against the plain arithmetic in f32 on the same bf16 inputs differ by
+# tanh.approx.f32's error (relative ~2^-11) summed over P; its bf16
+# weights round once, the composite's after each op. Readings on an H100
+# over these shapes: f32 weights 7.5e-8, logits 1.5e-6; bf16 logits 7.0e-6,
+# weights 9.8e-4 (one bf16 ulp at 1/4). The bf16 weights' limit lies
+# above that reading and well under a typical weight (about 0.01 at 100
+# boxes, 0.007 at 150)
+ATTN_TOL = {torch.float32: {"weights": 1e-5, "logits": 1e-5},
+            torch.bfloat16: {"weights": 1.5e-3, "logits": 1e-4}}
+# the f32 kernel's tanh against tanhf (PyTorch's tanh) over a sweep
+ATTN_TANH_TOL = 2e-7
+
+
+def attention_inputs(gen: torch.Generator, dev, dtype, B: int, rpi: int, N: int, Pw: int,
+                     ragged: bool):
+    """Seeded kernel inputs at the decode's scales (proj_query ~ 0.3, the
+    projected boxes ~ 0.6, w_attend U(±1/sqrt(P))); a ragged mask keeps a
+    random 1..N boxes an image and none of the last image's."""
+    q = (0.3 * torch.randn(B * rpi, Pw, generator=gen, device=dev)).to(dtype)
+    pv = (0.6 * torch.randn(B, N, Pw, generator=gen, device=dev)).to(dtype)
+    w = ((2 * torch.rand(Pw, generator=gen, device=dev) - 1) / Pw ** 0.5).to(dtype)
+    mask = torch.ones(B, N, dtype=torch.bool, device=dev)
+    if ragged:
+        real = torch.randint(1, N + 1, (B, 1), generator=gen, device=dev)
+        mask = torch.arange(N, device=dev) < real
+        if B > 1:
+            mask[-1] = False
+    return q, pv, w, mask
+
+
+def attention_row(name: str, dtype, shape, gen, dev, ragged: bool, timed: bool) -> dict:
+    """The kernel against its plain version on one shape: weights, f32
+    logits (against the plain arithmetic in f32 on the same inputs), masked
+    boxes and fully masked rows exactly 0, two launches bit-equal; with
+    ``timed``, its time by CUDA graph, the plain version's and the bound."""
+    B, rpi, N, Pw = shape
+    q, pv, w, mask = attention_inputs(gen, dev, dtype, B, rpi, N, Pw, ragged)
+    got, logits = butd_attention.butd_attention_logits(q, pv, w, mask)
+    again = butd_attention.butd_attention(q, pv, w, mask)
+    want = butd_attention.butd_attention_plain(q, pv, w, mask)
+    want_logits = torch.matmul((q.float().reshape(B, rpi, 1, Pw) + pv.float()[:, None]).tanh(),
+                               w.float()).reshape(B * rpi, N)
+    keep = mask.repeat_interleave(rpi, dim=0)
+    torch.cuda.synchronize()
+    row = {"phase": "kernel", "name": "butd_attention", "case": name,
+           "dtype": str(dtype).split(".")[-1], "images": B, "rows": B * rpi, "boxes": N,
+           "width": Pw, "ragged": ragged,
+           "plan": butd_attention.plan(B, rpi, N, Pw, dtype),
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "max_abs_err_logits": (logits - want_logits)[keep].abs().max().item()
+           if keep.any() else 0.0,
+           "masked_zero": bool((got[~keep] == 0).all()),
+           "deterministic": bool(torch.equal(got, again)),
+           "tolerance": ATTN_TOL[dtype]}
+    del want, want_logits
+    if timed:
+        kernel = lambda: butd_attention.butd_attention(q, pv, w, mask)  # noqa: E731
+        plain = lambda: butd_attention.butd_attention_plain(q, pv, w, mask)  # noqa: E731
+        ms, rng_ = graph_ms_range(kernel)
+        elems = B * rpi * N * Pw
+        size = q.element_size()
+        t = {"sfu": elems * ATTN_SFU_PER_ELEM[dtype] / SFU_PER_S * 1e3,
+             "fp32_lanes": elems * ATTN_FP32_PER_ELEM[dtype] / FP32_LANES_PER_S * 1e3,
+             "bytes": ((B * rpi * Pw + B * N * Pw + Pw + B * rpi * N) * size + B * N)
+             / HBM_BYTES_PER_S * 1e3}
+        by = max(t, key=t.get)
+        row.update(kernel_ms=ms, kernel_ms_range=rng_, plain_ms=time_ms(plain, 2),
+                   bound_ms=t[by], bound_by=by, bounds_ms=t, bound_ratio=ms / t[by],
+                   # no single PyTorch call computes the attention
+                   library_ms=None)
+    emit(row)
+    tol = ATTN_TOL[dtype]
+    if not (row["max_abs_err"] <= tol["weights"] and row["max_abs_err_logits"] <= tol["logits"]
+            and row["masked_zero"] and row["deterministic"]):
+        fail(f"butd_attention ({name}, {row['dtype']}) disagrees with its plain version: {row}")
+    return row
+
+
+def attention_decode_check(dev: torch.device) -> int:
+    """Config 3's f32 CBS decode (prehead) through the kernel, then on the
+    same inputs and noise with the routing's kernel call swapped for the
+    composite (the plain version): the share of identical best captions
+    and the largest log-prob gap where identical; returns the kernel's
+    launches in the first decode (one a step)."""
+    cfg = decode_cfg()
+    params = init_captioner(cfg, seed=0, device=dev, dtype=torch.float32)
+    feats, sentiment, tables = decode_setup(cfg, BATCH, N_Z, BOXES, seed=0)
+    harness = DecodeHarness(params, cfg, device=dev)
+
+    def decode():
+        return harness.decode_cbs(feats, sentiment, None, tables, N_CONSTRAINTS,
+                                  torch.Generator(device=dev).manual_seed(7), N_Z,
+                                  selection="prehead")
+
+    before = butd_attention.launches
+    best, lp = decode()
+    torch.cuda.synchronize()
+    launches = butd_attention.launches - before
+    attention_mod.butd_attention = butd_attention.butd_attention_plain
+    try:
+        best_c, lp_c = decode()
+        torch.cuda.synchronize()
+    finally:
+        attention_mod.butd_attention = butd_attention.butd_attention
+    same = (best == best_c).all(dim=-1)
+    identical = same.float().mean().item()
+    lp_gap = (lp - lp_c)[same].abs().max().item() if same.any() else None
+    emit({"phase": "attention_decode", "dtype": "float32", "launches": launches,
+          "expected_launches": STEPS, "kernel_vs_composite_identical": identical,
+          "lp_max_abs_diff_identical": lp_gap, "need": F32_DECODE_AGREE_MIN})
+    if launches != STEPS:
+        fail(f"attention_decode: {launches} kernel launches in a decode, expected {STEPS}")
+    if identical < F32_DECODE_AGREE_MIN:
+        fail(f"attention_decode: the kernel's f32 decode matches the composite's on "
+             f"{identical:.4f} of its best captions")
+    del harness, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def attention_train_launches(dev: torch.device) -> int:
+    """The kernel's launches in one f32 training step at config 2's widths
+    (batch 8): the step needs the gradient, so the composite runs."""
+    cfg = train_cfg()
+    params = init_captioner(cfg, seed=0, device=dev)
+    config = Config(config_override=ACTIVE_OVERRIDES)
+    state = create_train_state(params, config, cfg, seed=1, device=dev)
+    batch = train_batch(cfg, 8, BOXES, seed=8, dev=dev)
+    before = butd_attention.launches
+    make_train_step(cfg, config.MODEL.KLD_WEIGHT)(state, batch)
+    torch.cuda.synchronize()
+    launches = butd_attention.launches - before
+    emit({"phase": "attention_train", "launches": launches, "expected_launches": 0})
+    if launches:
+        fail(f"attention_train: a training step launched the kernel {launches} times")
+    return launches
+
+
+def phase_attention(dev: torch.device) -> dict:
+    """The BUTD attention kernel: rows at the cells' decode shape in f32 and
+    bf16 and at a serve request's (timed), the edge shapes, the f32 tanh
+    against tanhf over a sweep, then the decode check and a training
+    step's launches. Returns the decode row of each dtype, keyed for the
+    kernels line."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape in ATTN_SHAPES.items():
+            row = attention_row(name, dtype, shape, gen, dev, ragged=name == "serve", timed=True)
+            if name == "decode":
+                rows["butd_attention" if dtype == torch.bfloat16 else "butd_attention_f32"] = row
+        for shape in ATTN_EDGE_SHAPES:
+            attention_row("edge", dtype, shape, gen, dev, ragged=True, timed=False)
+    # tanh over [-12, 12] and its special values through a one-box,
+    # width-1 call with w = 1 and zero boxes: the logits are the tanh
+    x = torch.cat([torch.linspace(-12, 12, 1 << 20, device=dev),
+                   torch.tensor([0.0, -0.0, 1e-30, -1e-30, 1e-4, 0.55, 0.6, 0.625, 9.0, 9.1,
+                                 float("inf"), float("-inf")], device=dev)])
+    x = torch.cat([x, x * 1e-3])[:, None].contiguous()
+    _, got = butd_attention.butd_attention_logits(
+        x, torch.zeros(1, 1, 1, device=dev), torch.ones(1, device=dev),
+        torch.ones(1, 1, dtype=torch.bool, device=dev))
+    tanh_err = (got[:, 0] - torch.tanh(x[:, 0])).abs().max().item()
+    emit({"phase": "attention_tanh", "values": x.shape[0], "max_abs_err_vs_tanhf": tanh_err,
+          "tolerance": ATTN_TANH_TOL})
+    if not tanh_err <= ATTN_TANH_TOL:
+        fail(f"attention_tanh: the f32 kernel's tanh is {tanh_err} off tanhf")
+    attention_decode_check(dev)
+    attention_train_launches(dev)
+    return rows
 
 
 def phase_beam(dev: torch.device, decode_state) -> None:
@@ -976,7 +1211,7 @@ def phase_beam(dev: torch.device, decode_state) -> None:
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     check_decode_output("beam", best, best_lp, [N_Z, BATCH, STEPS], counts,
-                        {name: 0 for name in counts},
+                        decode_expected(),
                         {"phase": "beam", "batch": BATCH, "n_z": N_Z, "beam": BEAM,
                          "best_lp_min": best_lp.min().item(), "first_run_s": first_s,
                          "warm_run_s": warm_s, "captions_per_s": BATCH * N_Z / warm_s})
@@ -1024,7 +1259,7 @@ def phase_greedy(dev: torch.device) -> None:
     distinct = len({tuple(c.flatten().tolist()) for c in chained})
     check_decode_output("greedy", torch.stack(chained), None,
                         [GREEDY_CHAIN, GREEDY_BATCH, STEPS], counts,
-                        {name: 0 for name in counts},
+                        decode_expected(),
                         {"phase": "greedy", "batch": GREEDY_BATCH, "first_run_s": first_s,
                          "one_decode_s": one_s,
                          "captions_per_s_one_decode": GREEDY_BATCH / one_s,
@@ -1063,7 +1298,7 @@ def phase_sample(dev: torch.device, decode_state) -> None:
         distinct = float(np.mean([len({tuple(rows[k][b]) for k in range(N_Z)})
                                   for b in range(BATCH)]))
         check_decode_output(f"sample ({method})", toks, None, [N_Z, BATCH, STEPS], counts,
-                            {name: 0 for name in counts},
+                            decode_expected(),
                             {"phase": "sample", "method": method, **SAMPLER_KW,
                              "beam": BEAM if method == "gumbel" else None, "batch": BATCH,
                              "n_z": N_Z, "first_run_s": first_s, "warm_run_s": warm_s,
@@ -1133,8 +1368,7 @@ def phase_diverse(dev: torch.device, decode_state) -> None:
     cider = Cider()
     corpus = cider.make_corpus(gts)
     for selection in ("raw", "prehead"):
-        expected = {"vocab_topk_lse": STEPS - 1 if selection == "prehead" else 0,
-                    "topk_lse": 0}
+        expected = decode_expected("vocab_topk_lse" if selection == "prehead" else None)
         decode_s, score_s, scores = [], [], []
         for i in range(DIVERSE_ROUNDS):
             reset_selection_counts()
@@ -1508,7 +1742,7 @@ def phase_e2e(dev: torch.device, det_state, decode_state) -> None:
     """Config 5 end to end: raw canvases → detector → bf16 features → CBS
     decode (fused selection), timed warm as one run."""
     harness, sentiment, tables = decode_state
-    for mod in KERNELS.values():
+    for mod in (*KERNELS.values(), butd_attention):
         mod.launches = 0
     nms.launches_by_shape.clear()
     torch.cuda.synchronize()
@@ -1521,8 +1755,9 @@ def phase_e2e(dev: torch.device, det_state, decode_state) -> None:
     dt = time.time() - t0
     counts = {name: mod.launches for name, mod in KERNELS.items()}
     counts.update({site: nms.launches_by_shape[call[:2]] for site, call in NMS_CALLS.items()})
+    counts["butd_attention"] = butd_attention.launches
     expected = {"vocab_topk_lse": 0, "topk_lse": STEPS - 1, "roi_align": 1, "nms": 2,
-                "nms_rpn": 1, "nms_per_class": 1}
+                "nms_rpn": 1, "nms_per_class": 1, "butd_attention": STEPS}
     in_vocab = bool(((best >= 0) & (best < V)).all())
     finite = bool(torch.isfinite(best_lp).all())
     emit({"phase": "e2e", "selection": "fused", "seconds": dt,
@@ -3788,7 +4023,7 @@ def pipeline_launches(stats: dict) -> dict:
     names: every D call of the workflow is the RPN's (the extract CLI's
     per-class NMS is numpy)."""
     out = {"vocab_topk_lse": 0, "topk_lse": 0, "roi_align": 0, "roi_align_backward": 0,
-           "nms_rpn": 0}
+           "nms_rpn": 0, "butd_attention": 0}
     for stage in stats["stages"].values():
         for name, n in stage["launches"].items():
             out["nms_rpn" if name == "nms" else name] += n
@@ -3945,6 +4180,11 @@ def main() -> int:
         phase_decode_f32(dev)
         print_card()
         return 0
+    if sys.argv[1:] == ["--attention"]:
+        phase_build()
+        phase_attention(dev)
+        print_card()
+        return 0
     if sys.argv[1:2] == ["--pipeline-readings"] and len(sys.argv) <= 3:
         phase_build()
         return pipeline_readings(dev, sys.argv[2] if len(sys.argv) == 3 else None)
@@ -3956,11 +4196,15 @@ def main() -> int:
     rows = phase_kernels(k, dev)
     phase_agree(dev)
     launches, decode_state = phase_decode(dev)
-    # the decode that the inference CLI runs by default: kernel A's f32
-    # route, whose summary entry counts this run's launches; A's own entry
-    # counts the wrapper's launches of both routes
-    launches["vocab_topk_lse_f32"] = phase_decode_f32(dev)
+    # the decode that the inference CLI runs by default: the f32 routes of
+    # kernel A and of the attention kernel, whose summary entries count
+    # this run's launches; A's own entry counts the wrapper's launches of
+    # both routes, the attention's bf16 entry the bf16 prehead decode's
+    launches.update(phase_decode_f32(dev))
     launches["vocab_topk_lse"] += launches["vocab_topk_lse_f32"]
+    # the attention kernel's rows, its f32 decode against the composite and
+    # a training step's launches (none)
+    rows.update(phase_attention(dev))
     phase_beam(dev, decode_state)
     phase_greedy(dev)
     det_rows = phase_detector_kernels(dev)

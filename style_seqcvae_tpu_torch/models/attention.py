@@ -3,7 +3,9 @@
 
 The query carries arbitrary inner grid dims (z-samples, FSM states, beam)
 between batch and H; image features stay ``(B, N, P)`` and are broadcast,
-never replicated per beam.
+never replicated per beam. Without a gradient the weights come from
+``ops/kernels/butd_attention.py`` (the CUDA kernel on the card, its plain
+version on the CPU); a call that needs a gradient runs the plain version.
 """
 
 from __future__ import annotations
@@ -12,7 +14,10 @@ from typing import NamedTuple
 
 import torch
 
-from style_seqcvae_tpu_torch.ops.masked import masked_softmax
+from style_seqcvae_tpu_torch.ops.kernels.butd_attention import (
+    butd_attention,
+    butd_attention_plain,
+)
 
 
 class AttentionParams(NamedTuple):
@@ -48,12 +53,17 @@ def attention_weights(params: AttentionParams, query: torch.Tensor,
     """``w_a · tanh(W_q q + W_v V)`` → masked softmax over boxes.
 
     query (B, ..., H); projected_image_features (B, N, P);
-    image_features_mask (B, N). Returns (B, ..., N)."""
+    image_features_mask (B, N). Returns (B, ..., N). A call that needs the
+    gradient (training) runs ``butd_attention_plain``, plain PyTorch that
+    autograd differentiates; every other call runs ``butd_attention``,
+    whose kernel has no backward."""
     proj_query = torch.matmul(query, params.w_query)
-    extra = proj_query.dim() - 2
     B, N, P = projected_image_features.shape
-    pv = projected_image_features.reshape((B,) + (1,) * extra + (N, P))
-    # the (B, ..., N, P) sum is a fresh tensor: tanh in place halves its memory
-    logits = torch.matmul((proj_query[..., None, :] + pv).tanh_(), params.w_attend)
-    mask = image_features_mask.reshape((B,) + (1,) * extra + (N,))
-    return masked_softmax(logits, mask.expand(logits.shape), dim=-1)
+    if proj_query.shape[0] != B:
+        raise ValueError(f"query's batch {proj_query.shape[0]} is not the features' {B}")
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (query, projected_image_features, *params))
+    weights = (butd_attention_plain if needs_grad else butd_attention)(
+        proj_query.reshape(-1, P), projected_image_features, params.w_attend,
+        image_features_mask)
+    return weights.reshape(tuple(proj_query.shape[:-1]) + (N,))

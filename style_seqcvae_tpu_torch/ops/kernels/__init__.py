@@ -17,12 +17,20 @@ _recorded: set = set()
 
 def launch_counts() -> Dict[str, int]:
     """This process's launches of each kernel so far: A (``vocab_topk_lse``),
-    B (``topk_lse``), C (``roi_align``), C's backward and D (``nms``)."""
-    from style_seqcvae_tpu_torch.ops.kernels import nms, roi_align, topk_lse, vocab_topk_lse
+    B (``topk_lse``), C (``roi_align``), C's backward, D (``nms``) and the
+    BUTD attention (``butd_attention``)."""
+    from style_seqcvae_tpu_torch.ops.kernels import (
+        butd_attention,
+        nms,
+        roi_align,
+        topk_lse,
+        vocab_topk_lse,
+    )
 
     return {"vocab_topk_lse": vocab_topk_lse.launches, "topk_lse": topk_lse.launches,
             "roi_align": roi_align.launches,
-            "roi_align_backward": roi_align.backward_launches, "nms": nms.launches}
+            "roi_align_backward": roi_align.backward_launches, "nms": nms.launches,
+            "butd_attention": butd_attention.launches}
 
 
 def report_launches(rc: int) -> int:

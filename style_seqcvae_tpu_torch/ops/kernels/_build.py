@@ -11,7 +11,8 @@ that a later process would load.
 ``csrc/nvjpeg_decode.cpp``, the binding of the toolkit's JPEG decoder, is
 built the same way into a library of its own,
 ``build/torch_kernels/nvjpeg-<hash>/libssc_nvjpeg.so`` (:func:`build_nvjpeg`),
-so that a machine without libnvjpeg still builds kernels A-D.
+so that a machine without libnvjpeg still builds kernels A-D and the
+attention kernel.
 """
 
 from __future__ import annotations
@@ -175,6 +176,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssc_nms_scan.restype = i
     lib.ssc_nms_scan_smem_bytes.argtypes = [i]
     lib.ssc_nms_scan_smem_bytes.restype = i
+    # (proj_query, pv, w_attend, mask, out, logits or NULL, B, rows_per_image, N, P,
+    #  is_bf16, stream)
+    lib.ssc_butd_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.ssc_butd_attention.restype = i
+    # (B, rows_per_image, N, P, is_bf16, out[7])
+    lib.ssc_butd_attention_plan.argtypes = [i, i, i, i, i, p]
+    lib.ssc_butd_attention_plan.restype = i
     lib.ssc_error_string.argtypes = [i]
     lib.ssc_error_string.restype = ctypes.c_char_p
     return lib

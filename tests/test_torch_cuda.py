@@ -35,7 +35,14 @@ from style_seqcvae_tpu_torch.decoding.harness import DecodeHarness, pad_tables_b
 from style_seqcvae_tpu_torch.models import captioner as tcap
 from style_seqcvae_tpu_torch.models.detector.faster_rcnn import DetectorConfig, init_detector
 from style_seqcvae_tpu_torch.models.updown_cell import init_cell_state
-from style_seqcvae_tpu_torch.ops.kernels import nms, roi_align, topk_lse, vocab_topk_lse
+from style_seqcvae_tpu_torch.models.attention import AttentionParams, attention_weights
+from style_seqcvae_tpu_torch.ops.kernels import (
+    butd_attention,
+    nms,
+    roi_align,
+    topk_lse,
+    vocab_topk_lse,
+)
 from style_seqcvae_tpu_torch.scripts import inference as cli
 from style_seqcvae_tpu_torch.serving import make_serve_fn
 from style_seqcvae_tpu_torch.utils.features_io import FeaturesWriter, pack_obj_atts
@@ -511,11 +518,125 @@ def test_wrappers_raise_on_cuda_misuse(dev):
         nms.suppression_bitmask(torch.zeros(41, device=dev)[1:].view(1, 10, 4), 0.5)  # 4 B off
 
 
+# ---------------------------------------------------------------- attention
+# The BUTD attention kernel against its plain version (plain PyTorch ops on
+# the card). f32: the kernel's tanh is tanhf, the plain version's,
+# and its P-long sums and its softmax run in another order than cuBLAS's
+# matvec and PyTorch's reductions: weights a few 1e-7 apart. bf16: the
+# kernel sums, takes the tanh (tanh.approx.f32, relative error ~2^-11) and
+# the softmax in f32 and rounds the weights once, so its f32 logits are held
+# to the plain arithmetic run in f32 on the same bf16 inputs. Readings on an
+# H100 at these shapes: f32 weights at most 7.5e-8 apart, bf16 logits 7.0e-6,
+# the tanh sweep 0 (the f32 route's tanh is tanhf itself).
+ATTN_F32_TOL = 1e-5
+ATTN_BF16_LOGITS_TOL = 1e-4
+ATTN_TANH_TOL = 2e-7
+
+
+def _attention_inputs(dev, dtype, B, rpi, N, P, seed, ragged=True):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = (0.3 * torch.randn(B * rpi, P, generator=gen, device=dev)).to(dtype)
+    pv = (0.6 * torch.randn(B, N, P, generator=gen, device=dev)).to(dtype)
+    w = ((2 * torch.rand(P, generator=gen, device=dev) - 1) / P ** 0.5).to(dtype)
+    mask = torch.ones(B, N, dtype=torch.bool, device=dev)
+    if ragged:
+        mask = torch.arange(N, device=dev) < torch.randint(1, N + 1, (B, 1), generator=gen,
+                                                           device=dev)
+        if B > 1:
+            mask[-1] = False                                # a fully masked image
+    return q, pv, w, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,rpi,N,P,ragged", [
+    (16, 800, 100, 768, False),      # the cells' decode step
+    (1, 800, 100, 768, True),        # a serve request over fewer real boxes
+    (3, 40, 37, 768, True),
+    (2, 7, 1, 100, True),
+    (2, 33, 150, 768, True),         # boxes past one tile: running max and sum
+    (2, 9, 37, 101, True),           # odd width: 2-byte bf16 copies, 4-byte f32
+])
+def test_butd_attention_kernel(dev, dtype, B, rpi, N, P, ragged):
+    q, pv, w, mask = _attention_inputs(dev, dtype, B, rpi, N, P, seed=B * rpi + N, ragged=ragged)
+    before = butd_attention.launches
+    got, logits = butd_attention.butd_attention_logits(q, pv, w, mask)
+    again = butd_attention.butd_attention(q, pv, w, mask)
+    want = butd_attention.butd_attention_plain(q, pv, w, mask)
+    torch.cuda.synchronize()
+    assert butd_attention.launches == before + 2
+    assert got.dtype == dtype and got.shape == (B * rpi, N)
+    assert torch.equal(got, again)                          # two launches bit-equal
+    keep = mask.repeat_interleave(rpi, dim=0)
+    assert (got[~keep] == 0).all()                          # masked boxes, masked rows
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=ATTN_F32_TOL, rtol=0)
+    else:
+        f32 = torch.matmul((q.float().reshape(B, rpi, 1, P) + pv.float()[:, None]).tanh(),
+                           w.float()).reshape(B * rpi, N)
+        torch.testing.assert_close(logits[keep], f32[keep], atol=ATTN_BF16_LOGITS_TOL, rtol=0)
+        # the weights: the f32 softmax of the kernel's own logits, rounded
+        # once; its sum runs in another order, so a value may round to the
+        # neighbouring bf16 (one ulp, 2^-8 to 2^-7 relative)
+        soft = butd_attention.masked_softmax(logits, keep)
+        torch.testing.assert_close(got.float(), soft.to(dtype).float(), atol=0, rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+def test_butd_attention_tanh_sweep(dev):
+    """The f32 route's tanh against tanhf (``torch.tanh``) over [-12, 12],
+    its special values and a sweep near 0: one box, width 1, w = 1."""
+    x = torch.cat([torch.linspace(-12, 12, 1 << 20, device=dev),
+                   torch.tensor([0.0, -0.0, 1e-30, 0.55, 0.6, 9.0, 9.1, float("inf"),
+                                 float("-inf")], device=dev)])
+    x = torch.cat([x, x * 1e-3])[:, None].contiguous()
+    _, got = butd_attention.butd_attention_logits(
+        x, torch.zeros(1, 1, 1, device=dev), torch.ones(1, device=dev),
+        torch.ones(1, 1, dtype=torch.bool, device=dev))
+    assert (got[:, 0] - torch.tanh(x[:, 0])).abs().max().item() <= ATTN_TANH_TOL
+
+
+@pytest.mark.cuda
+def test_attention_weights_routes_on_gpu(dev):
+    """Without a gradient the weights come from the kernel and match the
+    plain version; under grad the plain version runs and the kernel does
+    not."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = AttentionParams(*(0.1 * torch.randn(s, generator=gen, device=dev)
+                               for s in ((24, 16), (32, 16), (16,))))
+    query = torch.randn(3, 2, 4, 24, generator=gen, device=dev)
+    pv = torch.randn(3, 6, 16, generator=gen, device=dev)
+    mask = torch.tensor([[1, 1, 1, 1, 0, 0], [1] * 6, [0] * 6], device=dev) > 0
+    before = butd_attention.launches
+    with torch.no_grad():
+        got = attention_weights(params, query, pv, mask)
+    assert butd_attention.launches == before + 1
+    grads = [t.clone().requires_grad_(True) for t in (*params, query)]
+    want = attention_weights(AttentionParams(*grads[:3]), grads[3], pv, mask)
+    want.sum().backward()
+    assert butd_attention.launches == before + 1
+    assert all(g.grad is not None for g in (grads[0], grads[2], grads[3]))
+    torch.testing.assert_close(got, want.detach(), atol=ATTN_F32_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_butd_attention_raises_on_cuda_misuse(dev):
+    q, pv, w, mask = _attention_inputs(dev, torch.float32, 2, 4, 6, 16, seed=0)
+    with pytest.raises(ValueError):
+        butd_attention.butd_attention(q, pv.transpose(1, 2).contiguous().transpose(1, 2), w,
+                                      mask)                 # pv not contiguous
+    with pytest.raises(TypeError):
+        butd_attention.butd_attention(q, pv.bfloat16(), w, mask)   # mixed dtypes
+    with pytest.raises(ValueError):
+        butd_attention.butd_attention(q, pv.cpu(), w, mask)        # mixed devices
+
+
 # ---------------------------------------------------------------- decodes
 # A small f32 model decoded on the GPU and on the CPU on the same seeded
-# noise. Every selection here runs without a kernel, so the two differ only
-# in how cuBLAS and the CPU sum the step's products (~1e-6): tokens must be
-# identical, scores within DECODE_LP_TOL.
+# noise. Every selection here runs without a selection kernel, so the two
+# differ only in how cuBLAS and the CPU sum the step's products and how the
+# attention kernel sums its scores (~1e-6): tokens must be identical, scores
+# within DECODE_LP_TOL.
 DECODE_LP_TOL = 1e-3
 DEC = dict(vocab_size=300, image_feature_size=32, embedding_size=300, hidden_size=24,
            attention_projection_size=16, z_space=8, sentiment_vae=1, simple_vae=False,
