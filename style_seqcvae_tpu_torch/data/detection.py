@@ -7,7 +7,7 @@ canvases (counterpart of ``style_seqcvae_tpu/data/detection.py``).
 * :func:`load_image_bgr` and :func:`decode_image_bgr`: image files and bytes
   to float32 BGR HWC on a device (``data/image_decode.py``).
 * :func:`prepare_image`: JAX ``prepare_image_np`` (``:179-201``) on tensors,
-  on the image's device.
+  on the image's device, in the span ``ssc.prepare``.
 * :func:`flip_record`: JAX ``:204-214``, the image flipped on its own device.
 * :func:`canvas_for` and :func:`make_batch`: JAX ``:217-259``.
 """
@@ -24,6 +24,7 @@ import torch
 
 from style_seqcvae_tpu_torch.data.image_decode import decode_image_bgr
 from style_seqcvae_tpu_torch.data.readers import CocoAttributesReader, SenticapReader
+from style_seqcvae_tpu_torch.utils.tracing import PREPARE, span
 
 PIXEL_MEANS_BGR = np.array([102.9801, 115.9465, 122.7717], np.float32)
 
@@ -169,29 +170,31 @@ def prepare_image(img: torch.Tensor, target_size: int, max_size: int
     longer would exceed ``max_size``. img (H, W, 3) float32 BGR → (canvas
     (h', w', 3) float32, scale). The tap indices and weights are JAX's
     (float64 on the host) and the taps are summed in float64 in JAX's
-    order, as numpy promotes them there."""
-    dev = img.device
-    h, w = img.shape[:2]
-    new_h, new_w, scale = prepared_size(h, w, target_size, max_size)
+    order, as numpy promotes them there. Runs in the span ``ssc.prepare``
+    (``utils/tracing.py``)."""
+    with span(PREPARE):
+        dev = img.device
+        h, w = img.shape[:2]
+        new_h, new_w, scale = prepared_size(h, w, target_size, max_size)
 
-    def taps(n_out: int, n_in: int):
-        pos = (np.arange(n_out) + 0.5) / scale - 0.5
-        i0 = np.clip(np.floor(pos).astype(np.int64), 0, n_in - 1)
-        i1 = np.clip(i0 + 1, 0, n_in - 1)
-        wt = np.clip(pos - i0, 0, 1)
-        return (torch.from_numpy(i0).to(dev), torch.from_numpy(i1).to(dev),
-                torch.from_numpy(wt).to(dev))
+        def taps(n_out: int, n_in: int):
+            pos = (np.arange(n_out) + 0.5) / scale - 0.5
+            i0 = np.clip(np.floor(pos).astype(np.int64), 0, n_in - 1)
+            i1 = np.clip(i0 + 1, 0, n_in - 1)
+            wt = np.clip(pos - i0, 0, 1)
+            return (torch.from_numpy(i0).to(dev), torch.from_numpy(i1).to(dev),
+                    torch.from_numpy(wt).to(dev))
 
-    y0, y1, wy = taps(new_h, h)
-    x0, x1, wx = taps(new_w, w)
-    wy, wx = wy[:, None, None], wx[None, :, None]
-    src = (img.float() - torch.from_numpy(PIXEL_MEANS_BGR).to(dev)).double()
-    top, bottom = src.index_select(0, y0), src.index_select(0, y1)
-    out = ((top.index_select(1, x0) * (1 - wy) * (1 - wx))
-           + (top.index_select(1, x1) * (1 - wy) * wx)
-           + (bottom.index_select(1, x0) * wy * (1 - wx))
-           + (bottom.index_select(1, x1) * wy * wx))
-    return out.float(), scale
+        y0, y1, wy = taps(new_h, h)
+        x0, x1, wx = taps(new_w, w)
+        wy, wx = wy[:, None, None], wx[None, :, None]
+        src = (img.float() - torch.from_numpy(PIXEL_MEANS_BGR).to(dev)).double()
+        top, bottom = src.index_select(0, y0), src.index_select(0, y1)
+        out = ((top.index_select(1, x0) * (1 - wy) * (1 - wx))
+               + (top.index_select(1, x1) * (1 - wy) * wx)
+               + (bottom.index_select(1, x0) * wy * (1 - wx))
+               + (bottom.index_select(1, x1) * wy * wx))
+        return out.float(), scale
 
 
 def flip_record(record: Dict[str, Any], img: torch.Tensor

@@ -35,6 +35,7 @@ from style_seqcvae_tpu_torch.ops.kernels import nms as nms_kernel
 from style_seqcvae_tpu_torch.ops.nms import nms_reference
 from style_seqcvae_tpu_torch.ops.topk import top_k
 from style_seqcvae_tpu_torch.utils.features_io import pack_obj_atts, pack_obj_atts_det
+from style_seqcvae_tpu_torch.utils.tracing import DETECT_SELECT, span
 
 _TEST = InferenceConfig()
 
@@ -143,7 +144,8 @@ def select_detections_device(scores: torch.Tensor, pred_boxes: torch.Tensor,
     rows in descending score order: features (B, M, F) with invalid rows
     zeroed (row 0 all ones when nothing survives), boxes (B, M, 4), scores
     (B, M), class_ids (B, M), valid (B, M) and, with ``scores_atts``,
-    att_scores (B, M, A)."""
+    att_scores (B, M, A), and roi_index (B, M), the row of P each detection
+    came from (0 where invalid)."""
     B, P, C = scores.shape
     if C < 2:
         raise ValueError("class-specific boxes expected")
@@ -174,6 +176,7 @@ def select_detections_device(scores: torch.Tensor, pred_boxes: torch.Tensor,
         "scores": torch.where(ok, top_s, 0.0),
         "class_ids": torch.where(ok, top_i // P + start_index, 0),
         "valid": ok,
+        "roi_index": torch.where(ok, box_idx, 0),
     }
     if scores_atts is not None:
         att = torch.gather(scores_atts, 1,
@@ -202,7 +205,10 @@ def extract_device_features(
 
     Returns features (B, max_boxes, 2048) in ``dtype`` (what
     ``DecodeHarness.decode_cbs`` takes), and valid, boxes, scores,
-    class_ids and, with an attribute head, att_scores over the same rows."""
+    class_ids, roi_index and, with an attribute head, att_scores over the
+    same rows, and the proposals they came from, rois (B, P, 5) and
+    roi_valid (B, P). The box
+    decoding and the selection run in the span ``ssc.detect.select``."""
     dev = resolve_device(device)
     param_dev = params["rpn"]["conv"]["w"].device
     if param_dev.type != dev.type:
@@ -216,18 +222,20 @@ def extract_device_features(
                                 post_nms_top_n=test.rpn_post_nms_top_n,
                                 pre_nms_top_n=test.rpn_pre_nms_top_n,
                                 nms_thresh=test.rpn_nms_thresh)
-    pred = decode_boxes(out["rois"][..., 1:5], out["bbox_pred"], im_info,
-                        test.bbox_normalize_stds, test.bbox_normalize_means, im_info[:, 2],
-                        cfg.num_classes)
-    sel = select_detections_device(out["cls_prob"], pred, out["pooled_feat"],
-                                   out.get("cls_prob_atts"), thresh=test.score_thresh,
-                                   nms_thresh=test.nms_thresh,
-                                   max_per_image=min(test.max_per_image, max_boxes))
-    pad = max_boxes - sel["valid"].shape[1]
-    if pad > 0:
-        for key, t in sel.items():
-            widths = (0, 0) * (t.dim() - 2) + (0, pad)
-            sel[key] = F.pad(t, widths) if t.dtype != torch.bool else \
-                F.pad(t.to(torch.uint8), widths).bool()
-    sel["features"] = sel["features"].to(dtype)
+    with span(DETECT_SELECT):
+        pred = decode_boxes(out["rois"][..., 1:5], out["bbox_pred"], im_info,
+                            test.bbox_normalize_stds, test.bbox_normalize_means,
+                            im_info[:, 2], cfg.num_classes)
+        sel = select_detections_device(out["cls_prob"], pred, out["pooled_feat"],
+                                       out.get("cls_prob_atts"), thresh=test.score_thresh,
+                                       nms_thresh=test.nms_thresh,
+                                       max_per_image=min(test.max_per_image, max_boxes))
+        pad = max_boxes - sel["valid"].shape[1]
+        if pad > 0:
+            for key, t in sel.items():
+                widths = (0, 0) * (t.dim() - 2) + (0, pad)
+                sel[key] = F.pad(t, widths) if t.dtype != torch.bool else \
+                    F.pad(t.to(torch.uint8), widths).bool()
+        sel["features"] = sel["features"].to(dtype)
+    sel["rois"], sel["roi_valid"] = out["rois"], out["roi_valid"]
     return sel

@@ -59,6 +59,12 @@ from style_seqcvae_tpu_torch.ops.kernels import roi_align as roi_align_kernel
 from style_seqcvae_tpu_torch.ops.roi_align import roi_pool
 from style_seqcvae_tpu_torch.ops.roi_crop import roi_crop
 from style_seqcvae_tpu_torch.parallel.collectives import global_sum, world_size
+from style_seqcvae_tpu_torch.utils.tracing import (
+    DETECT_BACKBONE,
+    DETECT_ROI_HEAD,
+    DETECT_RPN,
+    span,
+)
 
 _TEST = InferenceConfig()
 
@@ -336,29 +342,34 @@ def detector_forward_test(params: Dict[str, Any], cfg: DetectorConfig,
 
     Returns rois (B, P, 5), roi_valid (B, P), cls_prob (B, P, C), bbox_pred
     (B, P, 4C), pooled_feat (B, P, 2048; 4096 for VGG16) and, with an
-    attribute head, cls_prob_atts (B, P, A)."""
+    attribute head, cls_prob_atts (B, P, A). Opens the spans
+    ``ssc.detect.backbone``, ``ssc.detect.rpn`` and ``ssc.detect.roi_head``
+    (``utils/tracing.py``)."""
     B = images.shape[0]
-    base_feat = _backbone(params, cfg, images)
-    anchors = anchors_for(base_feat.shape[1], base_feat.shape[2], cfg.feat_stride,
-                          cfg.anchor_scales, cfg.anchor_ratios, base_feat.device)
-    cls_logits, bbox_deltas = rpn_heads(params["rpn"], base_feat)
-    rois, _, roi_valid = proposal_layer(
-        cls_logits, bbox_deltas, anchors, im_info, pre_nms_top_n=pre_nms_top_n,
-        post_nms_top_n=post_nms_top_n, nms_thresh=nms_thresh)
+    with span(DETECT_BACKBONE):
+        base_feat = _backbone(params, cfg, images)
+    with span(DETECT_RPN):
+        anchors = anchors_for(base_feat.shape[1], base_feat.shape[2], cfg.feat_stride,
+                              cfg.anchor_scales, cfg.anchor_ratios, base_feat.device)
+        cls_logits, bbox_deltas = rpn_heads(params["rpn"], base_feat)
+        rois, _, roi_valid = proposal_layer(
+            cls_logits, bbox_deltas, anchors, im_info, pre_nms_top_n=pre_nms_top_n,
+            post_nms_top_n=post_nms_top_n, nms_thresh=nms_thresh)
 
-    P = rois.shape[1]
-    pooled_feat = _pool_rois(params, cfg, base_feat, rois.reshape(B * P, 5))
-    cls_prob = torch.softmax(linear_f32(params["cls_score"], pooled_feat), dim=-1)
-    bbox_pred = linear_f32(params["bbox_pred"], pooled_feat)
-    out = {
-        "rois": rois, "roi_valid": roi_valid,
-        "cls_prob": cls_prob.reshape(B, P, -1),
-        "bbox_pred": bbox_pred.reshape(B, P, -1),
-        "pooled_feat": pooled_feat.reshape(B, P, -1),
-    }
-    if cfg.num_att_classes:
-        out["cls_prob_atts"] = torch.sigmoid(
-            linear_f32(params["cls_score_atts"], pooled_feat)).reshape(B, P, -1)
+    with span(DETECT_ROI_HEAD):
+        P = rois.shape[1]
+        pooled_feat = _pool_rois(params, cfg, base_feat, rois.reshape(B * P, 5))
+        cls_prob = torch.softmax(linear_f32(params["cls_score"], pooled_feat), dim=-1)
+        bbox_pred = linear_f32(params["bbox_pred"], pooled_feat)
+        out = {
+            "rois": rois, "roi_valid": roi_valid,
+            "cls_prob": cls_prob.reshape(B, P, -1),
+            "bbox_pred": bbox_pred.reshape(B, P, -1),
+            "pooled_feat": pooled_feat.reshape(B, P, -1),
+        }
+        if cfg.num_att_classes:
+            out["cls_prob_atts"] = torch.sigmoid(
+                linear_f32(params["cls_score_atts"], pooled_feat)).reshape(B, P, -1)
     return out
 
 

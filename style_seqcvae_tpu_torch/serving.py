@@ -37,6 +37,7 @@ from style_seqcvae_tpu_torch.models.captioner import CaptionerConfig
 from style_seqcvae_tpu_torch.models.detector.defaults import InferenceConfig
 from style_seqcvae_tpu_torch.models.detector.extract import extract_device_features
 from style_seqcvae_tpu_torch.models.detector.faster_rcnn import DetectorConfig
+from style_seqcvae_tpu_torch.utils.tracing import CONSTRAIN, DETECT, span
 
 
 def attribute_embeds_device(att_scores: torch.Tensor, valid: torch.Tensor,
@@ -79,7 +80,9 @@ def make_serve_fn(det_cfg: DetectorConfig, cap_cfg: CaptionerConfig,
     im_info (B, 3), sentiment (B, 1), *, generator=None, gumbel=None,
     noise=None) -> (captions (Z, B, T), log_probs (Z, B), num_constraints
     (B,))``, tensors on the device. Its three stages are its attributes
-    ``serve.detect``, ``serve.constrain`` and ``serve.caption``. ``dtype`` is the features' type; the
+    ``serve.detect``, ``serve.constrain`` and ``serve.caption``, each in a
+    span of ``utils/tracing.py`` (``caption``'s is the decode's own).
+    ``dtype`` is the features' type; the
     decode runs in ``cap_params``' own. The draws come from ``generator``
     (on the device) unless given: ``gumbel`` the attribute picks' noise
     (n_fsm, B, max_constraints, A), n_fsm = n_z with ``per_z_fsm`` (each z
@@ -106,8 +109,10 @@ def make_serve_fn(det_cfg: DetectorConfig, cap_cfg: CaptionerConfig,
     @torch.inference_mode()
     def detect(det_params: Dict[str, Any], images, im_info) -> Dict[str, torch.Tensor]:
         """The detector forward and the device selection (kernels C, D)."""
-        sel = extract_device_features(det_params, det_cfg, images, im_info,
-                                      max_boxes=max_boxes, test=test, device=dev, dtype=dtype)
+        with span(DETECT):
+            sel = extract_device_features(det_params, det_cfg, images, im_info,
+                                          max_boxes=max_boxes, test=test, device=dev,
+                                          dtype=dtype)
         if "att_scores" not in sel:
             raise ValueError("serving needs a detector with an attribute head "
                              "(num_att_classes > 0): the constraints come from the "
@@ -120,11 +125,12 @@ def make_serve_fn(det_cfg: DetectorConfig, cap_cfg: CaptionerConfig,
         """(att_ids (n_fsm, B, k), num_constraints (B,), tables (n_z, B, S,
         E)) from ``detect``'s selection; ``gumbel`` a noise tensor or a
         generator."""
-        att_ids, num_given = select_attribute_constraints(
-            sel["class_ids"], sel["valid"], sel["att_scores"], table,
-            gumbel if isinstance(gumbel, torch.Generator) else as_tensor(gumbel, dev),
-            n_fsm=n_fsm, att_thresh=att_thresh, max_constraints=max_constraints)
-        return att_ids, num_given, tables_for_samples(att_ids, table, n_z, max_constraints)
+        with span(CONSTRAIN):
+            att_ids, num_given = select_attribute_constraints(
+                sel["class_ids"], sel["valid"], sel["att_scores"], table,
+                gumbel if isinstance(gumbel, torch.Generator) else as_tensor(gumbel, dev),
+                n_fsm=n_fsm, att_thresh=att_thresh, max_constraints=max_constraints)
+            return att_ids, num_given, tables_for_samples(att_ids, table, n_z, max_constraints)
 
     @torch.inference_mode()
     def caption(cap_params: Dict[str, Any], sel: Dict[str, torch.Tensor], sentiment,

@@ -1,5 +1,5 @@
-"""Named spans of the port's decode, recorded into ``torch.profiler``'s own
-trace.
+"""Named spans of the port's decode and serving chain, recorded into
+``torch.profiler``'s own trace.
 
 :func:`span` opens a ``torch.profiler.record_function`` range while a
 profiler records (``torch.profiler.profile``, ``emit_nvtx``) and otherwise
@@ -27,9 +27,32 @@ span                        parent                      covers
                                                         and beam picks
 ``ssc.cbs.finish``          ``ssc.decode_cbs``          sequences from back-pointers, the
                                                         best beam, the z-major views
+``ssc.prepare``             (the caller's)              ``data/detection.py::prepare_image``:
+                                                        one image's mean subtraction and
+                                                        resize
+``ssc.detect``              (the caller's)              ``serve.detect``: the detector forward
+                                                        and the device selection
+``ssc.detect.backbone``     ``ssc.detect``              the ResNet or VGG16 trunk to the C4 map
+``ssc.detect.rpn``          ``ssc.detect``              the RPN's heads, the proposal layer and
+                                                        its NMS (kernel D)
+``ssc.detect.roi_head``     ``ssc.detect``              RoI pooling (kernel C), the head
+                                                        (layer4 or fc6 / fc7) and the class,
+                                                        box and attribute heads
+``ssc.detect.select``       ``ssc.detect``              box decoding, the per-class NMS
+                                                        (kernel D), the top detections and
+                                                        their gathers
+``ssc.constrain``           (the caller's)              ``serve.constrain``: the attribute
+                                                        constraints and the FSM tables
 ==========================  ==========================  =====================================
 
-The benchmark's readers (``benchmark/spans.py``) look for these names.
+``serve.caption`` opens no span of its own: its work is the
+``ssc.decode_cbs`` tree. The detector's spans are opened wherever
+``detector_forward_test`` and ``extract_device_features`` run (the extract
+CLI too).
+
+The benchmark's readers look for these names: the decode's in
+``benchmark/spans.py`` (:data:`NAMES`), the serving chain's in
+``benchmark/pipeline_spans.py`` (:data:`SERVE_NAMES`).
 """
 
 from __future__ import annotations
@@ -47,6 +70,17 @@ CBS_SEARCH = "ssc.cbs.search"
 CBS_FINISH = "ssc.cbs.finish"
 
 NAMES = (DECODE_CBS, CBS_SETUP, STEP, STEP_ATTENTION, CBS_SELECT, CBS_SEARCH, CBS_FINISH)
+
+PREPARE = "ssc.prepare"
+DETECT = "ssc.detect"
+DETECT_BACKBONE = "ssc.detect.backbone"
+DETECT_RPN = "ssc.detect.rpn"
+DETECT_ROI_HEAD = "ssc.detect.roi_head"
+DETECT_SELECT = "ssc.detect.select"
+CONSTRAIN = "ssc.constrain"
+
+SERVE_NAMES = (PREPARE, DETECT, DETECT_BACKBONE, DETECT_RPN, DETECT_ROI_HEAD, DETECT_SELECT,
+               CONSTRAIN)
 
 _OFF = contextlib.nullcontext()
 

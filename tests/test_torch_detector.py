@@ -232,9 +232,15 @@ def test_select_detections_matches_jax(ref, thresh):
                                    nms_thresh=0.3, max_per_image=MAXB)
     for i in range(B):
         want = jax.tree_util.tree_map(np.asarray, one(i))
-        assert set(got) == set(want)
+        assert set(got) == set(want) | {"roi_index"}
         for key in want:
             np.testing.assert_array_equal(got[key][i].numpy(), want[key], err_msg=key)
+        # roi_index, the port's own output: the RoI each kept detection came from
+        ok = got["valid"][i].numpy()
+        rows = got["roi_index"][i].numpy()
+        assert (rows[~ok] == 0).all()
+        np.testing.assert_array_equal(got["features"][i].numpy()[ok],
+                                      out["pooled_feat"][i][rows[ok]])
     if thresh == 0.99:
         assert not got["valid"].any() and (got["features"][:, 0] == 1).all()
     if thresh == 0.05:
