@@ -37,7 +37,12 @@ one JSON line per phase as it goes:
    f32 parameters and features through "prehead" (kernel A's f32 route, 19
    launches; the attention kernel's, 20), timed, against the same f32
    decode through "raw" (no selection kernel): at least 99% of the best
-   captions identical; then ``attention``: the BUTD attention kernel
+   captions identical; then ``sync_free``: ``decode_cbs`` in bf16 and f32,
+   each selection, under ``set_sync_debug_mode("error")`` (a host-device
+   sync raises), on inputs on the card and on inputs that arrive on the
+   host, with its launches (A or B 19, the attention 20) and ms a decode
+   (``--sync-free`` runs the build and this alone);
+   then ``attention``: the BUTD attention kernel
    (``csrc/butd_attention.cu``) against its plain version in f32 and bf16
    at the cells' decode step (16 images x 800 rows over 100 boxes, P 768)
    and a serve request's (one image, 800 rows, a ragged mask), timed by CUDA
@@ -1000,6 +1005,61 @@ def phase_decode_f32(dev: torch.device) -> dict:
     del harness, params
     torch.cuda.empty_cache()
     return launches
+
+
+def card_inputs(dev: torch.device, seed: int):
+    """Config 3's decode inputs on the card (features, sentiment, padded
+    tables, constraint counts, z-noise shared by a z-sample's beams), as the
+    benchmark's cells hand them to ``decode_cbs``."""
+    feats, sentiment, tables = decode_setup(decode_cfg(), BATCH, N_Z, BOXES, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.from_numpy(feats).to(dev), torch.from_numpy(sentiment).to(dev),
+            FSMTables(*[torch.from_numpy(np.asarray(t)).to(dev) for t in tables]),
+            torch.full((BATCH,), N_CONSTRAINTS, device=dev),
+            torch.randn((N_Z, STEPS, BATCH, 1, 1, Z), generator=gen, device=dev))
+
+
+def phase_sync_free(dev: torch.device) -> None:
+    """``decode_cbs`` at config 3's widths in bf16 and f32, through each
+    selection, under ``torch.cuda.set_sync_debug_mode("error")`` (a
+    host-device sync raises): on inputs already on the card, as the
+    benchmark's cells hand them, and on inputs that arrive on the host
+    (copied through pinned memory); the launches of A, B and the attention
+    kernel in the first, as their wrappers count them, and its ms (CUDA
+    events around 3 decodes, after one outside the mode)."""
+    cfg = decode_cfg()
+    for dtype in (torch.bfloat16, torch.float32):
+        params = init_captioner(cfg, seed=0, device=dev, dtype=dtype)
+        harness = DecodeHarness(params, cfg, device=dev)
+        on_card = card_inputs(dev, 1)
+        feats, sentiment, tables = decode_setup(cfg, BATCH, N_Z, BOXES, seed=3)
+        on_host = (feats, sentiment, tables, N_CONSTRAINTS,
+                   np.random.RandomState(3).randn(N_Z, STEPS, BATCH, 1, 1, Z).astype(np.float32))
+        for selection in SELECTIONS:
+            kernel = {"prehead": "vocab_topk_lse", "fused": "topk_lse"}.get(selection)
+
+            def run(x):
+                return harness.decode_cbs(x[0], x[1], None, x[2], x[3], x[4], N_Z,
+                                          selection=selection)
+
+            run(on_card)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                reset_selection_counts()
+                best, best_lp = run(on_card)
+                counts = selection_counts()
+                run(on_host)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            row = {"phase": "sync_free", "dtype": str(dtype).split(".")[-1],
+                   "selection": selection, "sync_debug_mode": "error",
+                   "decode_ms": time_ms(lambda: run(on_card), reps=3)}
+            check_decode_output(f"sync_free ({selection}, {dtype})", best, best_lp,
+                                [N_Z, BATCH, STEPS], counts, decode_expected(kernel), row)
+        del harness, params
+        torch.cuda.empty_cache()
 
 
 # the BUTD attention kernel (csrc/butd_attention.cu): (images, rows an
@@ -4175,6 +4235,11 @@ def main() -> int:
         phase_pipeline(dev)
         print_card()
         return 0
+    if sys.argv[1:] == ["--sync-free"]:
+        phase_build()
+        phase_sync_free(dev)
+        print_card()
+        return 0
     if sys.argv[1:] == ["--decode-f32"]:
         phase_build()
         phase_decode_f32(dev)
@@ -4202,6 +4267,8 @@ def main() -> int:
     # both routes, the attention's bf16 entry the bf16 prehead decode's
     launches.update(phase_decode_f32(dev))
     launches["vocab_topk_lse"] += launches["vocab_topk_lse_f32"]
+    # the decode with no host-device sync, on inputs on the card and on the host
+    phase_sync_free(dev)
     # the attention kernel's rows, its f32 decode against the composite and
     # a training step's launches (none)
     rows.update(phase_attention(dev))

@@ -64,7 +64,7 @@ def _cleaned_log_probs(log_probs: torch.Tensor, last_preds: torch.Tensor,
     ``end`` again, with log-prob 0."""
     after_end = torch.full((log_probs.shape[-1],), float("-inf"), dtype=log_probs.dtype,
                            device=log_probs.device)
-    after_end[end_index] = 0.0
+    after_end.narrow(0, end_index, 1).fill_(0.0)
     return torch.where((last_preds == end_index)[..., None], after_end, log_probs)
 
 

@@ -81,8 +81,9 @@ def constrained_beam_search(
     K = beam_size
     pnbs = per_node_beam_size or beam_size
     from_tensor = torch.is_tensor(noise)
-    neg_inf = torch.tensor(float("-inf"), device=dev)
-    mask_val = torch.tensor(MASK_VAL, device=dev)
+    # constants filled on the device once a search (a copy from the host waits for the card)
+    neg_inf = torch.full((), float("-inf"), device=dev)
+    mask_val = torch.full((), MASK_VAL, device=dev)
 
     lp0, state = step_fn(start_tokens[:, None, None],
                          type(init_state)(*[t[:, None, None] for t in init_state]),

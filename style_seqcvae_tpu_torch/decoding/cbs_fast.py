@@ -38,6 +38,7 @@ from style_seqcvae_tpu_torch.decoding.beam_search import (
     pick_beams,
     reconstruct_sequences,
 )
+from style_seqcvae_tpu_torch.device import as_tensor
 from style_seqcvae_tpu_torch.ops.kernels.topk_lse import top_k_with_lse
 from style_seqcvae_tpu_torch.ops.kernels.vocab_topk_lse import matmul_top_k_with_lse
 from style_seqcvae_tpu_torch.ops.topk import small_top_k, top_k
@@ -120,9 +121,7 @@ def stack_fsm_tables(tables, pad_exceptions: int = 0) -> FSMTables:
 
 def fsm_to_device(fsm: FSMTables, device: torch.device) -> FSMTables:
     """numpy (or tensor) tables → tensors on ``device`` (long / bool)."""
-    return FSMTables(*[torch.as_tensor(np.asarray(t) if not torch.is_tensor(t) else t,
-                                       device=device).to(torch.bool if f == "exc_valid"
-                                                         else torch.long)
+    return FSMTables(*[as_tensor(t, device, torch.bool if f == "exc_valid" else torch.long)
                        for f, t in zip(FSMTables._fields, fsm)])
 
 
@@ -174,7 +173,8 @@ def constrained_beam_search_fast(
         dev = start_tokens.device
         states = torch.arange(S, device=dev)
         bidx = torch.arange(B, device=dev)
-        neg_inf = torch.tensor(float("-inf"), device=dev)
+        # the search's constants, filled on the device once a decode
+        neg_inf = torch.full((), float("-inf"), device=dev)
 
         # ---- first step: transitions from state 0 ----------------------------
         k0 = noise[0][:, :1, :1] if from_tensor else noise
@@ -217,8 +217,8 @@ def constrained_beam_search_fast(
         state = _map_state(lambda t: t.expand((B, S, K) + tuple(t.shape[3:])).contiguous(), state)
 
         end_pattern = torch.full((pnbs,), MASK_VAL, device=dev)
-        end_pattern[0] = 0.0
-        mask_val = torch.tensor(MASK_VAL, device=dev)
+        end_pattern.narrow(0, 0, 1).fill_(0.0)
+        mask_val = torch.full((), MASK_VAL, device=dev)
         if selection == "prehead":
             # exception-token embedding rows are step-constant: gather them once
             exc_emb = (embedding[fsm.exc_token].float()

@@ -323,7 +323,8 @@ class DecodeHarness:
         holds for every image (a tensor stays where it lies, with no copy
         to the host). ``noise``: z-noise in the JAX layout (n_z,
         max_steps, B, S, K, z), or a ``torch.Generator`` on the decode device
-        that draws it.
+        that draws it. Inputs on the host are copied through pinned memory,
+        and nothing in the decode waits for the card.
 
         Returns (best (n_z, B, T), best_lp (n_z, B)), or all beams
         ((n_z, B, S, K, T), (n_z, B, S, K)) with ``return_all``."""
@@ -350,7 +351,7 @@ class DecodeHarness:
                 fsm = FSMTables(*[t.transpose(0, 1).reshape((B * Z,) + tuple(t.shape[2:]))
                                   for t in fsm])
                 nc = _constraint_counts(num_constraints, B)
-                nc = nc.to(dev) if torch.is_tensor(nc) else torch.as_tensor(nc, device=dev)
+                nc = as_tensor(nc, dev)
 
                 prehead = selection == "prehead"
                 grid_step = self._grid_step(feats, sentiment, obj_att_embeds, Z,

@@ -39,7 +39,7 @@ def select_best_beam_simple(beams: torch.Tensor, lp: torch.Tensor,
     beam 0 of the most likely valid state."""
     B, S, K, T = beams.shape
     valid = valid_state_mask_simple(S, given_constraints, min_constraints_to_satisfy)
-    top_lp = torch.where(valid, lp[:, :, 0], torch.tensor(float("-inf"), device=lp.device))
+    top_lp = torch.where(valid, lp[:, :, 0], float("-inf"))
     best_state = torch.argmax(top_lp, dim=1)
     best = beams[torch.arange(B, device=beams.device), best_state, 0, :]
     return best, top_lp.amax(dim=1)

@@ -24,8 +24,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 def as_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None
               ) -> Optional[torch.Tensor]:
     """A numpy array or tensor (``None`` passes through) on ``device``, cast
-    to ``dtype`` when one is given."""
+    to ``dtype`` when one is given. Host data bound for a GPU goes through
+    pinned memory and is copied without the host waiting for the card (a
+    copy from pageable memory waits for it), then cast there."""
     if x is None:
         return None
     t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+    if torch.device(device).type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory().to(device, non_blocking=True)
     return t.to(device=device, dtype=dtype or t.dtype)

@@ -9,7 +9,7 @@ import torch
 def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Softmax over unmasked entries; a fully masked row stays finite (zeros)."""
     keep = mask > 0
-    neg_inf = torch.tensor(float("-inf"), dtype=logits.dtype, device=logits.device)
+    neg_inf = torch.full((), float("-inf"), dtype=logits.dtype, device=logits.device)
     mx = torch.where(keep, logits, neg_inf).amax(dim=dim, keepdim=True)
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
     probs = torch.exp(torch.where(keep, logits - mx, neg_inf))

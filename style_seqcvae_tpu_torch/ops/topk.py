@@ -30,7 +30,8 @@ def small_top_k(x: torch.Tensor, k: int, iterative_threshold: int = 8
     if k > iterative_threshold:
         return top_k(x, k)
     col = torch.arange(x.shape[-1], device=x.device)
-    neg_inf = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+    # filled on the device: a scalar copied from the host waits for the card
+    neg_inf = torch.full((), float("-inf"), dtype=x.dtype, device=x.device)
     vals, idxs = [], []
     cur = x
     for _ in range(k):
